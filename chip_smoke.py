@@ -8,13 +8,24 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      phases (``cudnn.allow_tf32`` and ``cuda.matmul.allow_tf32``);
   1. build: compile the CUDA kernels under ``tfpose_tpu_torch/csrc/``;
   2. kernel parity: each kernel against its plain PyTorch version on the
-     card, at the main path's shapes (B = 1 and 8, K = 32 and 128);
-  3. main path: the mobilenet_thin 432x368 estimator with the committed
-     ``thin368_coco`` weights, ``inference`` and ``inference_batch`` at
-     upsample 4 on rendered scenes; every kernel's launch count must rise,
-     and the humans must equal those of the same estimator on the CPU;
+     card, at the main path's shapes (B = 1 and 8, K = 32 and 128; the
+     full-resolution top-K at 360x640x18 and 115x135x144, on noise and
+     on a plateau with more peaks than its shared-memory list);
+  3. main path: the mobilenet_thin estimator with the committed
+     ``thin368_coco`` weights and 432x368 input, path by path, each with
+     the launch counts set to 0 just before it and read just after:
+     ``inference`` and ``inference_batch`` at upsample 4 on rendered
+     432x368 scenes, ``inference_windowed`` on two rendered 1280x720
+     frames and ``inference_multiscale`` (scales 1.0, 1.5) on one, at
+     upsample 4, and ``inference_batch`` at upsample 2.5; every kernel
+     must launch, the full-resolution top-K on each 720p and 2.5x path
+     and the raw-grid one on no 720p path, and the humans must equal
+     those of the same estimator on the CPU. The card's area downscale
+     of a 1280x720 frame is held against the CPU's;
   4. timing (CUDA events, after warm-up): each kernel, ``inference``
-     latency and ``inference_batch`` images per second at B = 1, 8, 16.
+     latency, ``inference_batch`` images per second at B = 1, 8, 16 and
+     at upsample 2.5, and ``inference_windowed`` / ``inference_multiscale``
+     latency on 1280x720 frames; ``torch.profiler`` breakdowns.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 The last lines are the kernels driven, one JSON line per the kernels'
@@ -167,6 +178,46 @@ def k2_compare(got, want, heat):
     return d, int(flips.sum())
 
 
+def k4_compare(got, want):
+    """K4 against its plain version: indices exact, scores within 1e-6
+    (both sum the taps in one order with no fused multiply-add).
+    Returns max |d| of the scores."""
+    import torch
+
+    (s, i), (s0, i0) = got, want
+    check(torch.equal(i, i0), "K4 indices differ from the plain version's")
+    d = (s - s0).abs().max().item() if s.numel() else 0.0
+    check(d <= 1e-6, f"K4 scores max |d| {d:.3g} > 1e-6")
+    return d
+
+
+WINDOWED = "inference_windowed 1280x720 x2 (4x)"
+MULTISCALE = "inference_multiscale 1280x720 scales (1.0, 1.5) (4x)"
+BATCH25 = "inference_batch B=8 (2.5x)"
+
+
+def planes_up(net_b, up_h, up_w):
+    """(B, h8, w8, 57) -> the (up_h, up_w, B*18) view of channel-first
+    area-upsampled part planes that decode_batch gives K4."""
+    from tfpose_tpu_torch.ops import resize
+
+    heat = resize.resize_area(net_b[..., :19], up_h, up_w)[..., :18]
+    return heat.permute(0, 3, 1, 2).reshape(-1, up_h, up_w).permute(1, 2, 0)
+
+
+def render_frames(rng, n, h, w):
+    """``n`` rendered frames of 1-3 separated people at (h, w)."""
+    from tfpose_tpu_torch.utils import synthetic
+
+    out = []
+    for _ in range(n):
+        people = synthetic.random_people(
+            rng, int(rng.integers(1, 4)), h, w, separated=True,
+            template=synthetic.SPREAD_TEMPLATE)
+        out.append(synthetic.render_image(people, h, w, rng))
+    return out
+
+
 def humans_key(humans):
     return [(h.score, {p: (b.x, b.y, b.score) for p, b in
                        h.body_parts.items()}) for h in humans]
@@ -208,14 +259,19 @@ def main() -> int:
     from tfpose_tpu_torch.ops.kernels.paf_score import (
         paf_sample_scores, paf_sample_scores_plain)
     from tfpose_tpu_torch.ops.kernels.smooth_nms import (
-        _phase_tables, smooth_nms, smooth_nms_plain, smooth_nms_topk_raw,
-        smooth_nms_topk_raw_plain)
+        LIST_CAP, _phase_tables, blur_in_tap_order, smooth_nms,
+        smooth_nms_plain, smooth_nms_topk, smooth_nms_topk_plain,
+        smooth_nms_topk_raw, smooth_nms_topk_raw_plain)
+    from tfpose_tpu_torch.ops.nms import max3x3
+    from tfpose_tpu_torch.pipeline.multiscale import windowed_forward
+    from tfpose_tpu_torch.pipeline.preprocess import downscale_area
     from tfpose_tpu_torch.utils import synthetic
 
     dev = torch.device("cuda")
     wrappers = {"smooth_nms_topk_raw": smooth_nms_topk_raw,
                 "smooth_nms": smooth_nms,
-                "paf_sample_scores": paf_sample_scores}
+                "paf_sample_scores": paf_sample_scores,
+                "smooth_nms_topk": smooth_nms_topk}
     err = {name: 0.0 for name in wrappers}
     params = DecodeParams()
 
@@ -230,7 +286,12 @@ def main() -> int:
     with phase("1 build"):
         secs = build.build_all()
         log(f"built {len(build.build_log)} kernel libraries in {secs:.2f} s "
-            f"into {build.build_dir()}")
+            f"into {build.build_dir()}, one nvcc each, started together")
+        for stem in ("smooth_nms_topk_raw", "smooth_nms", "paf_score",
+                     "smooth_nms_topk"):
+            t = build.build_seconds.get(stem)
+            log(f"  build {stem}: " + (f"{t:.2f} s" if t is not None else
+                                       "found built from these sources"))
         for stem, out in sorted(build.build_log.items()):
             for line in out.splitlines():
                 if "registers" in line or "spill" in line or "smem" in line:
@@ -308,14 +369,38 @@ def main() -> int:
                     f"{tuple(samples[1].shape)}: cnt equal, mean max |d| "
                     f"{d:.3g}, live rows {int(samples[5].sum())}")
 
+        # K4 on (up_h, up_w, C) views of channel-first planes, as
+        # decode_batch hands them over
+        def k4_pair(x, k, what, cap=LIST_CAP):
+            got = smooth_nms_topk(x, k, 0.05, cap=cap)
+            d = k4_compare(got, smooth_nms_topk_plain(x, k, 0.05))
+            err["smooth_nms_topk"] = max(err["smooth_nms_topk"], d)
+            log(f"K4 smooth_nms_topk {what} {tuple(x.shape)} K={k} "
+                f"cap={cap}: {int((got[1] >= 0).sum())} peaks kept, "
+                f"indices equal, scores max |d| {d:.3g}")
+
+        rng4 = np.random.default_rng(4)
+        net720 = torch.from_numpy(
+            synthetic.render_scene(rng4, 3, 90, 160)[0]).to(dev)
+        x720 = planes_up(net720[None], 360, 640)
+        for k in (32, 128):
+            k4_pair(x720, k, "720p scene at 4x")
+        k4_pair(x720, 32, "720p scene, radix select", cap=32)
+        noise720 = torch.from_numpy(rng4.normal(
+            0.1, 0.3, (360, 640, 18)).astype(np.float32)).to(dev)
+        for k in (32, 128):
+            k4_pair(noise720, k, "noise")
+        k4_pair(planes_up(nets, 115, 135), 32, "B=8 at 2.5x")
+        plateau = torch.full((360, 640, 2), 0.5, device=dev)
+        plateau[..., 1] = 0.01  # a plane with no peak above 0.05
+        sm = blur_in_tap_order(plateau.permute(2, 0, 1))
+        n_peaks = int(((sm >= max3x3(sm)) & (sm > 0.05))[0].sum())
+        check(n_peaks > LIST_CAP, "the plateau fits the shared list")
+        k4_pair(plateau, 128, f"plateau of {n_peaks} peaks")
+
     with phase("3 main path"):
-        rng = np.random.default_rng(7)
-        imgs = []
-        for _ in range(8):
-            people = synthetic.random_people(
-                rng, int(rng.integers(1, 4)), 368, 432, separated=True,
-                template=synthetic.SPREAD_TEMPLATE)
-            imgs.append(synthetic.render_image(people, 368, 432, rng))
+        imgs = render_frames(np.random.default_rng(7), 8, 368, 432)
+        frames = render_frames(np.random.default_rng(720), 2, 720, 1280)
         t = time.perf_counter()
         est = TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
                               params_path=CHECKPOINT)
@@ -325,28 +410,54 @@ def main() -> int:
         est_cpu = TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
                                   params_path=CHECKPOINT, device="cpu")
 
-        for fn in wrappers.values():
-            fn.launches = 0
-        single = [est.inference(img, upsample_size=4.0) for img in imgs]
-        batch = est.inference_batch(imgs, upsample_size=4.0)
-        torch.cuda.synchronize()
-        launches = {name: fn.launches for name, fn in wrappers.items()}
+        # each path returns a list of per-image human lists
+        paths = {
+            "inference x8 (4x)": lambda e: [
+                e.inference(img, upsample_size=4.0) for img in imgs],
+            "inference_batch B=8 (4x)": lambda e: e.inference_batch(
+                imgs, upsample_size=4.0),
+            WINDOWED: lambda e: [e.inference_windowed(f, upsample_size=4.0)
+                                 for f in frames],
+            MULTISCALE: lambda e: [e.inference_multiscale(
+                frames[0], scales=(1.0, 1.5), upsample_size=4.0)],
+            BATCH25: lambda e: e.inference_batch(imgs, upsample_size=2.5),
+        }
+        path_launches, results = {}, {}
+        for path, run in paths.items():
+            for fn in wrappers.values():
+                fn.launches = 0
+            results[path] = run(est)
+            torch.cuda.synchronize()
+            path_launches[path] = {name: fn.launches
+                                   for name, fn in wrappers.items()}
+            log(f"launches on {path}: {path_launches[path]}")
+        launches = {name: sum(n[name] for n in path_launches.values())
+                    for name in wrappers}
         log(f"launch counts on the main path: {launches}")
         for name, n in launches.items():
             check(n > 0, f"the main path never launched {name}")
+        for path in (WINDOWED, MULTISCALE, BATCH25):
+            check(path_launches[path]["smooth_nms_topk"] > 0,
+                  f"{path} never launched smooth_nms_topk")
+        for path in (WINDOWED, MULTISCALE):
+            check(path_launches[path]["smooth_nms_topk_raw"] == 0,
+                  f"{path} launched smooth_nms_topk_raw")
 
-        n_single = [len(h) for h in single]
-        n_batch = [len(h) for h in batch]
-        log(f"humans per image: inference {n_single}, "
-            f"inference_batch {n_batch}")
-        check(sum(n_single) > 0, "no humans found")
-        for i, img in enumerate(imgs):
-            same_humans(single[i], est_cpu.inference(img, upsample_size=4.0),
-                        f"inference image {i}")
-        for i, (g, w) in enumerate(zip(
-                batch, est_cpu.inference_batch(imgs, upsample_size=4.0))):
-            same_humans(g, w, f"inference_batch image {i}")
+        for path, run in paths.items():
+            got = results[path]
+            log(f"humans per image, {path}: {[len(h) for h in got]}")
+            check(sum(len(h) for h in got) > 0, f"{path}: no humans found")
+            for i, (g, w) in enumerate(zip(got, run(est_cpu))):
+                same_humans(g, w, f"{path} image {i}")
         log("humans equal the CPU estimator's (coords 1e-6, scores 1e-4)")
+
+        frame = torch.from_numpy(frames[0])
+        d = (downscale_area(frame.to(dev), 368, 432).cpu().int()
+             - downscale_area(frame, 368, 432).int()).abs()
+        check(int(d.max()) <= 1, "area downscale differs by more than 1")
+        log(f"area downscale 1280x720 -> 432x368 on the card vs the CPU: "
+            f"{int((d > 0).sum())} of {d.numel()} values differ "
+            f"({float((d > 0).float().mean()):.3g}), max |d| {int(d.max())}")
 
     timings = {}
     with phase("4 timing"):
@@ -378,6 +489,15 @@ def main() -> int:
         k3_bytes = live * s3 * 16 + live_pairs * planes[0].numel() * 4 \
             + p3 * 4 + 2 * p3 * kk * 4
         k3_ops = live * s3 * 5
+        # K4 at the windowed path's own input: the merged map of the
+        # first 1280x720 frame, upsampled 4x
+        with torch.inference_mode():
+            merged = windowed_forward(
+                est._forward_windows, torch.from_numpy(frames[0]).to(dev),
+                368, 432)
+        x4 = planes_up(merged[None], 360, 640)
+        k4_bytes = x4.numel() * 4 + x4.shape[2] * 32 * 8
+        k4_ops = x4.numel() * (2 * (2 * 25 - 1) + 9)
         cases = {
             "smooth_nms_topk_raw": (
                 lambda: smooth_nms_topk_raw(heat8, 4, 4, 32, 0.05),
@@ -398,6 +518,12 @@ def main() -> int:
                 k3_bytes, k3_ops, "tfpose_tpu_torch/csrc/paf_score.cu",
                 "tfpose_tpu/ops/pallas/paf_score.py:104",
                 f"{tuple(iy.shape)} live rows {int(samples[5].sum())}"),
+            "smooth_nms_topk": (
+                lambda: smooth_nms_topk(x4, 32, 0.05),
+                lambda: smooth_nms_topk_plain(x4, 32, 0.05),
+                k4_bytes, k4_ops, "tfpose_tpu_torch/csrc/smooth_nms_topk.cu",
+                "tfpose_tpu/ops/pallas/smooth_nms.py:180",
+                f"{tuple(x4.shape)} K=32"),
         }
         kernels = []
         for name, (fn, plain, nbytes, ops, src, rep, shape) in cases.items():
@@ -414,25 +540,31 @@ def main() -> int:
                 "bound_ms": bms, "bound_by": by, "library_ms": None})
             timings[name] = (med, p90)
 
-        ours = {"smooth_nms_topk_raw": "topk_raw_kernel",
-                "smooth_nms": "smooth_nms_kernel",
-                "paf_sample_scores": "paf_sample_kernel"}
+        ours = {"smooth_nms_topk_raw": ("topk_raw_kernel",),
+                "smooth_nms": ("smooth_nms_kernel",),
+                "paf_sample_scores": ("paf_sample_kernel",),
+                "smooth_nms_topk": ("peaks_kernel", "select_kernel")}
         for what, fn in (
                 ("inference", lambda: est.inference(imgs[0],
                                                     upsample_size=4.0)),
                 ("inference_batch B=8", lambda: est.inference_batch(
-                    imgs, upsample_size=4.0))):
+                    imgs, upsample_size=4.0)),
+                ("inference_windowed 1280x720", lambda: est.inference_windowed(
+                    frames[0], upsample_size=4.0)),
+                ("inference_batch B=8 at 2.5x", lambda: est.inference_batch(
+                    imgs, upsample_size=2.5))):
             wall, busy, nk, rows = profile_calls(fn)
             log(f"profile {what}: wall {wall:.3f} ms, device busy "
                 f"{busy:.3f} ms (idle {100 * (1 - busy / wall):.1f} %), "
                 f"{nk:.0f} kernel launches per call {tag}")
             for key, ms, cnt in rows[:8]:
                 log(f"  {ms:.4f} ms  x{cnt:.0f}  {key[:90]}")
-            for name, sym in ours.items():
-                hit = [r for r in rows if sym in r[0]]
-                if hit:
-                    log(f"  device time of {name}: {hit[0][1] / hit[0][2]:.5f}"
-                        f" ms per launch")
+            for name, syms in ours.items():
+                hits = [[r for r in rows if sym in r[0]] for sym in syms]
+                if all(hits):
+                    per = [h[0][1] / h[0][2] for h in hits]
+                    log(f"  device time of {name}: {sum(per):.5f} ms per "
+                        f"launch ({' + '.join(f'{t:.5f}' for t in per)})")
 
         med, p90 = time_host(lambda: est.inference(imgs[0],
                                                    upsample_size=4.0), 20)
@@ -445,6 +577,20 @@ def main() -> int:
             log(f"time inference_batch B={b}: median {med * 1e3:.3f} ms "
                 f"p90 {p90 * 1e3:.3f} ms = {b / med:.2f} img/s (median), "
                 f"{b / p90:.2f} img/s (p90) {tag}")
+        med, p90 = time_host(lambda: est.inference_batch(
+            imgs, upsample_size=2.5), 10)
+        log(f"time inference_batch B=8 at upsample 2.5: median "
+            f"{med * 1e3:.3f} ms p90 {p90 * 1e3:.3f} ms = {8 / med:.2f} img/s"
+            f" (median), {8 / p90:.2f} img/s (p90) {tag}")
+        med, p90 = time_host(lambda: est.inference_windowed(
+            frames[0], upsample_size=4.0), 20)
+        log(f"time inference_windowed (1280x720, 12 windows, upsample 4): "
+            f"median {med * 1e3:.3f} ms p90 {p90 * 1e3:.3f} ms {tag}")
+        med, p90 = time_host(lambda: est.inference_multiscale(
+            frames[0], scales=(1.0, 1.5), upsample_size=4.0), 10)
+        log(f"time inference_multiscale (1280x720, scales 1.0 and 1.5: 12 + "
+            f"24 windows, upsample 4): median {med * 1e3:.3f} ms p90 "
+            f"{p90 * 1e3:.3f} ms {tag}")
 
     print("kernels: " + ", ".join(wrappers), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k2_compare
+from chip_smoke import k2_compare, k4_compare, planes_up
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.ops import nms, paf, resize
 from tfpose_tpu_torch.ops.kernels.paf_score import (
@@ -20,6 +20,8 @@ from tfpose_tpu_torch.ops.kernels.paf_score import (
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     smooth_nms,
     smooth_nms_plain,
+    smooth_nms_topk,
+    smooth_nms_topk_plain,
     smooth_nms_topk_raw,
     smooth_nms_topk_raw_plain,
 )
@@ -67,3 +69,24 @@ def test_paf_sample_kernel(nets):
     m0, c0 = paf_sample_scores_plain(*samples, s_paf=10, thresh=0.05)
     assert torch.equal(c, c0)
     torch.testing.assert_close(m, m0, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("k, cap", [(32, 4096), (128, 4096), (32, 32)])
+@pytest.mark.parametrize("up", [(360, 640), (115, 135)])
+def test_full_res_topk_kernel(nets, up, k, cap):
+    """Scene planes as decode hands them over (a (H, W, C) view of
+    channel-first planes); ``cap=32`` takes the radix-select path.
+    Indices exact, scores 1e-6."""
+    x = planes_up(nets, *up)
+    k4_compare(smooth_nms_topk(x, k, 0.05, cap=cap),
+               smooth_nms_topk_plain(x, k, 0.05))
+
+
+def test_full_res_topk_kernel_on_a_plateau(nets):
+    """Every interior pixel of a plateau is a peak: far more than the
+    kernel's shared list, so it selects by radix from device memory."""
+    x = torch.full((360, 640, 2), 0.5, device=nets.device)
+    x[..., 1] = 0.01
+    got = smooth_nms_topk(x, 128, 0.05)
+    k4_compare(got, smooth_nms_topk_plain(x, 128, 0.05))
+    assert bool((got[1][0].diff() > 0).all()) and bool((got[1][1] == -1).all())

@@ -1,7 +1,9 @@
 """Port parity for the decode: the port's ``decode`` / ``decode_batch``
-(raw-grid top-K + raw-grid PAF sampler, plain versions on the CPU)
-against the JAX ``decode`` / ``decode_batch`` on the CPU, on rendered
-scenes, the golden fixtures and a crowded input that saturates K."""
+(plain versions of the kernels on the CPU) against the JAX ``decode`` /
+``decode_batch`` on the CPU, on rendered scenes, the golden fixtures and
+a crowded input that saturates K; at integer ratios through the raw-grid
+top-K and PAF sampler, and through the full-resolution top-K where the
+ratio is not an integer or the raw-grid block does not fit."""
 
 import os
 
@@ -16,6 +18,7 @@ from tfpose_tpu.ops import decode as j_decode
 from tfpose_tpu.utils import synthetic
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.ops import decode
+from tfpose_tpu_torch.ops.kernels.smooth_nms import can_use_phase_kernel
 
 torch.set_num_threads(2)
 
@@ -85,7 +88,46 @@ def test_crowded_input_sets_peak_saturated_and_escalates():
     assert bool(plain.peak_saturated.any())
 
 
-def test_non_integer_ratio_waits_for_its_kernel():
-    net = torch.zeros(46, 54, 57)
-    with pytest.raises(NotImplementedError, match="B4"):
-        decode.decode(net, 183, 216, DecodeParams())
+def _spy_full_res_topk(monkeypatch):
+    """Record the (H, W, C) shape of every full-resolution top-K call
+    that decode makes."""
+    calls = []
+    orig = decode.smooth_nms_topk
+
+    def spy(heat, *args, **kwargs):
+        calls.append(tuple(heat.shape))
+        return orig(heat, *args, **kwargs)
+
+    monkeypatch.setattr(decode, "smooth_nms_topk", spy)
+    return calls
+
+
+def test_decode_at_a_non_integer_ratio(monkeypatch):
+    """Ratio 2.5 from (46, 54, 57): 115x135 through the full-resolution
+    top-K and the gather scorer, against JAX ``decode_batch`` and
+    ``decode``."""
+    nets = _scenes([(7, 3), (8, 1), (9, 0)], noise=0.02)
+    calls = _spy_full_res_topk(monkeypatch)
+    ref = j_decode.decode_batch(jnp.asarray(nets), 115, 135, JaxParams())
+    got = decode.decode_batch(torch.from_numpy(nets), 115, 135,
+                              DecodeParams())
+    _assert_same(got, ref)
+    assert calls == [(115, 135, 3 * 18)]
+    assert got.human_valid.sum(1).tolist()[1:] == [1, 0]
+    ref = j_decode.decode_jit(jnp.asarray(nets[0]), 115, 135, JaxParams())
+    _assert_same(decode.decode(torch.from_numpy(nets[0]), 115, 135,
+                               DecodeParams()), ref)
+
+
+def test_decode_at_4x_where_the_raw_grid_block_does_not_fit(monkeypatch):
+    """A 1280x720 frame in 432x368 windows merges to a 90x160 grid; at 4x
+    the raw-grid block would not fit shared memory, so the heat decodes
+    at 360x640 through the full-resolution top-K."""
+    assert not can_use_phase_kernel(90, 160, 360, 640)
+    net = synthetic.render_scene(np.random.default_rng(10), 4, 90, 160)[0]
+    calls = _spy_full_res_topk(monkeypatch)
+    ref = j_decode.decode_jit(jnp.asarray(net), 360, 640, JaxParams())
+    got = decode.decode(torch.from_numpy(net), 360, 640, DecodeParams())
+    _assert_same(got, ref)
+    assert calls == [(360, 640, 18)]
+    assert int(got.human_valid.sum()) > 0

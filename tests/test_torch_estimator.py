@@ -1,7 +1,9 @@
 """The slice end to end: the port's ``TfPoseEstimator(device="cpu")``
 against the JAX ``TfPoseEstimator`` on the CPU — mobilenet_thin at
-432x368 with the committed thin368_coco weights, and at 96x80 with the
-JAX estimator's random-init weights carried over."""
+432x368 with the committed thin368_coco weights (at 4x, at the
+non-integer 2.5x that decodes through the full-resolution top-K, on an
+image to downscale, and through the multi-scale path), and at 96x80 with
+the JAX estimator's random-init weights carried over."""
 
 import os
 
@@ -15,6 +17,7 @@ from tfpose_tpu.estimator import TfPoseEstimator as JaxEstimator
 from tfpose_tpu_torch.convert.checkpoint import variables_from_numpy
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.estimator import TfPoseEstimator
+from tfpose_tpu_torch.ops import decode
 from tfpose_tpu_torch.utils import synthetic
 
 torch.set_num_threads(2)
@@ -95,6 +98,56 @@ def test_inference_batch_432x368_thin368(thin368):
     assert [len(h) for h in got] == [len(h) for h in want]
     for g, w in zip(got, want):
         _assert_same_humans(g, w)
+
+
+def _spy_full_res_topk(monkeypatch):
+    calls = []
+    orig = decode.smooth_nms_topk
+
+    def spy(heat, *args, **kwargs):
+        calls.append(tuple(heat.shape))
+        return orig(heat, *args, **kwargs)
+
+    monkeypatch.setattr(decode, "smooth_nms_topk", spy)
+    return calls
+
+
+def test_inference_batch_at_a_non_integer_upsample(thin368, monkeypatch):
+    """Upsample 2.5: both scenes' heat decodes at 115x135 in one
+    full-resolution top-K call; the JAX estimator's humans."""
+    jax_est, est, imgs = thin368
+    calls = _spy_full_res_topk(monkeypatch)
+    got = est.inference_batch(imgs, upsample_size=2.5)
+    assert calls == [(115, 135, 2 * 18)]
+    want = jax_est.inference_batch(imgs, upsample_size=2.5)
+    assert [len(h) for h in got] == [len(h) for h in want]
+    assert sum(len(h) for h in got) > 0
+    for g, w in zip(got, want):
+        _assert_same_humans(g, w)
+
+
+def test_inference_downscales_an_864x736_image_like_jax(thin368):
+    """An image twice the target size: the port area-downscales it on the
+    device to uint8, which equals the JAX estimator's ``cv2.INTER_AREA``
+    at this factor; the same humans."""
+    jax_est, est, _ = thin368
+    img = _scenes(1, 736, 864, seed=9)[0]
+    got = est.inference(img, resize_to_default=True, upsample_size=4.0)
+    assert len(got) > 0
+    _assert_same_humans(got, jax_est.inference(img, resize_to_default=True,
+                                               upsample_size=4.0))
+
+
+def test_inference_multiscale_432x368_thin368(thin368):
+    """Scales (1.0, 1.5) of a 432x368 scene: one window, then four of
+    the 648x552 image, averaged on the 46x54 grid and decoded at 2.5x;
+    the JAX estimator's humans."""
+    jax_est, est, imgs = thin368
+    got = est.inference_multiscale(imgs[0], scales=(1.0, 1.5),
+                                   upsample_size=2.5)
+    assert len(got) > 0
+    _assert_same_humans(got, jax_est.inference_multiscale(
+        imgs[0], scales=(1.0, 1.5), upsample_size=2.5))
 
 
 def test_escalation_taken_on_the_same_inputs(thin368):

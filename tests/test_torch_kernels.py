@@ -1,6 +1,6 @@
-"""Port parity for the three kernel modules: each kernel's plain
-PyTorch version (what the wrapper runs on a CPU tensor) against the
-Pallas TPU kernel it replaces, run in interpret mode on the CPU."""
+"""Port parity for the kernel modules: each kernel's plain PyTorch
+version (what the wrapper runs on a CPU tensor) against the Pallas TPU
+kernel it replaces, run in interpret mode on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -11,9 +11,14 @@ import torch
 from tfpose_tpu.core.config import DecodeParams as JaxParams
 from tfpose_tpu.ops import nms as j_nms
 from tfpose_tpu.ops import paf as j_paf
+from tfpose_tpu.ops import resize as j_resize
 from tfpose_tpu.ops.pallas.paf_score import HPAD, paf_sample_scores_pallas
 from tfpose_tpu.ops.pallas.smooth_nms import (
+    can_use_phase_kernel as j_can_use_phase_kernel,
+)
+from tfpose_tpu.ops.pallas.smooth_nms import (
     smooth_nms_pallas,
+    smooth_nms_topk_pallas,
     smooth_nms_topk_raw_pallas,
 )
 from tfpose_tpu.utils import synthetic
@@ -22,7 +27,10 @@ from tfpose_tpu_torch.ops import nms, paf
 from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.kernels.paf_score import paf_sample_scores
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
+    MAX_SMEM,
+    can_use_phase_kernel,
     smooth_nms,
+    smooth_nms_topk,
     smooth_nms_topk_raw,
     topk_raw_smem_bytes,
 )
@@ -61,6 +69,77 @@ def test_smooth_nms_topk_raw_plain_vs_pallas(f, k, kind):
                                atol=0)
     if kind == "noise" and (f, k) == (4, 32):
         assert (i.numpy() >= 0).all()  # every slot filled: saturated
+
+
+def _heat_up(seed, h, w, c, kind):
+    """An upsampled heat map as decode sees it: a rendered scene's part
+    planes area-resized to (h, w), or noise drawn at (h, w) itself around
+    a level above the threshold (a peak every few pixels)."""
+    rng = np.random.default_rng(seed)
+    if kind == "noise":
+        return rng.normal(0.1, 0.3, (h, w, c)).astype(np.float32)
+    net, _ = synthetic.render_scene(rng, 4, 46, 54)
+    return np.asarray(j_resize.resize_area(jnp.asarray(net[..., :c]), h, w))
+
+
+@pytest.mark.parametrize("shape", [(115, 135, 18), (72, 128, 18)])
+@pytest.mark.parametrize("k", [32, 128])
+@pytest.mark.parametrize("kind", ["scene", "noise"])
+def test_smooth_nms_topk_plain_vs_pallas(shape, k, kind):
+    """Indices exact, scores atol 1e-6 (the plain version sums the taps
+    in the Pallas kernel's order; XLA on the CPU may fuse a multiply-add,
+    which moves a score by an ulp or so)."""
+    heat = _heat_up(k + shape[0], *shape, kind)
+    s_ref, i_ref = smooth_nms_topk_pallas(jnp.asarray(heat), k, 0.05,
+                                          interpret=True)
+    before = smooth_nms_topk.launches
+    s, i = smooth_nms_topk(_t(heat), k, 0.05)
+    assert smooth_nms_topk.launches == before  # CPU: no kernel launch
+    assert s.shape == (shape[2], k) and i.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=0,
+                               atol=1e-6)
+    assert (i.numpy() >= 0).sum() > 0
+    if kind == "noise" and k == 32:
+        assert (i.numpy() >= 0).all(1).any()  # a plane saturates K
+
+
+def test_smooth_nms_topk_plain_vs_pallas_on_a_plateau():
+    """A plateau above the threshold makes every pixel of its interior a
+    peak of equal score: the K kept are the lowest flat indices, on both
+    sides. A second plane is all below the threshold: no peak, slots 0
+    and -1."""
+    heat = np.zeros((40, 48, 2), np.float32)
+    heat[..., 0] = 0.5
+    heat[..., 1] = 0.01
+    s_ref, i_ref = smooth_nms_topk_pallas(jnp.asarray(heat), 32, 0.05,
+                                          interpret=True)
+    s, i = smooth_nms_topk(_t(heat), 32, 0.05)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_ref), rtol=0,
+                               atol=1e-6)
+    assert (np.diff(i.numpy()[0]) > 0).all() and len(set(s.numpy()[0])) == 1
+    assert (i.numpy()[1] == -1).all() and (s.numpy()[1] == 0).all()
+
+
+@pytest.mark.parametrize("h8, w8, up_h, up_w", [
+    (46, 54, 184, 216), (46, 54, 368, 432), (60, 80, 240, 320),
+    (90, 160, 360, 640), (90, 160, 720, 1280), (46, 54, 115, 135),
+    (46, 54, 92, 108), (135, 240, 540, 960)])
+def test_phase_kernel_route_depends_on_shapes_only(h8, w8, up_h, up_w):
+    """The raw-grid route needs an integer factor and a block that fits
+    shared memory; where the port leaves it, the JAX package leaves it
+    too or (720p at 4x) keeps it only through its larger VMEM budget."""
+    ok = can_use_phase_kernel(h8, w8, up_h, up_w)
+    if ok:
+        assert j_can_use_phase_kernel(h8, w8, up_h, up_w)
+        fy, fx = up_h // h8, up_w // w8
+        assert topk_raw_smem_bytes(h8, w8, fy, fx, 25 // fy + 2,
+                                   25 // fx + 2, 2048) <= MAX_SMEM
+    assert ok == ((h8, w8, up_h, up_w) in {(46, 54, 184, 216),
+                                           (46, 54, 368, 432),
+                                           (60, 80, 240, 320),
+                                           (46, 54, 92, 108)})
 
 
 @pytest.mark.parametrize("shape", [(46, 54, 19), (184, 216, 19)])
@@ -157,6 +236,10 @@ def test_wrappers_reject_bad_inputs():
         smooth_nms(torch.zeros(4, 4, 2, dtype=torch.float64))
     with pytest.raises(ValueError):
         smooth_nms_topk_raw(torch.zeros(4, 4), 4, 4, 8, 0.05)
+    with pytest.raises(ValueError, match="k_top"):
+        smooth_nms_topk(torch.zeros(4, 4, 2), 1025, 0.05)
+    with pytest.raises(ValueError, match="cap"):
+        smooth_nms_topk(torch.zeros(4, 4, 2), 32, 0.05, cap=16)
     z = torch.zeros(2, 10, 4, dtype=torch.int32)
     with pytest.raises(ValueError):
         paf_sample_scores(torch.zeros(2, 2, 3, 3), z, z, z.float(),
@@ -173,4 +256,4 @@ def test_build_dir_hashes_sources_and_finds_all_kernels():
     d = build.build_dir()
     assert d.startswith(build.BUILD_ROOT) and d == build.build_dir()
     assert {n[:-3] for n in build._sources() if n.endswith(".cu")} == {
-        "smooth_nms", "smooth_nms_topk_raw", "paf_score"}
+        "smooth_nms", "smooth_nms_topk_raw", "smooth_nms_topk", "paf_score"}

@@ -1,6 +1,7 @@
 """Port parity per op: each of the port's decode ops against its JAX
 function on the same seeded numpy inputs (both on the CPU)."""
 
+import cv2
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,6 +56,36 @@ def test_normalize():
     np.testing.assert_array_equal(
         preprocess.normalize(_t(img)).numpy(),
         _np(j_pre.normalize(jnp.asarray(img))))
+
+
+def _photo(seed, h, w):
+    """A rendered scene with pixel noise: texture at every scale."""
+    rng = np.random.default_rng(seed)
+    people = synthetic.random_people(rng, 2, h, w, separated=True,
+                                     template=synthetic.SPREAD_TEMPLATE)
+    img = synthetic.render_image(people, h, w, rng).astype(np.int16)
+    img += rng.integers(-20, 21, img.shape).astype(np.int16)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("h, w, max_share", [(736, 864, 0.0),
+                                             (552, 648, 0.0),
+                                             (720, 1280, 1e-4)])
+def test_downscale_area_matches_cv2_inter_area(h, w, max_share):
+    """The JAX estimator shrinks frames on the host with cv2.INTER_AREA;
+    the port's area average rounded half up equals it bit for bit at
+    864x736 and 648x552 -> 432x368, and at 1280x720 differs by at most
+    one grey level on at most 1e-4 of the values (sums within an ulp of
+    .5)."""
+    img = _photo(h, h, w)
+    want = cv2.resize(img, (432, 368), interpolation=cv2.INTER_AREA)
+    got = preprocess.downscale_area(_t(img), 368, 432).numpy()
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1 and (d > 0).mean() <= max_share
+    np.testing.assert_array_equal(
+        preprocess.prepare(_t(img[None]), 368, 432).numpy()[0],
+        preprocess.normalize(_t(got)).numpy())
 
 
 def test_gauss_kernel_and_smooth():

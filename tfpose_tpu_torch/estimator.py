@@ -8,8 +8,12 @@ CPU. ``device="cpu"`` runs every kernel's plain version (the tests do).
 The backbone runs fp32 (TF32 convolutions are switched off around the
 forward) and decode stays fp32.
 
-Not ported yet (ROADMAP A10, A12, A7): ``inference_windowed``,
-``inference_multiscale``, the int8 backbone and
+Entry points: ``inference`` (one image, also sets ``heatMat`` /
+``pafMat``), ``inference_batch``, and for frames larger than the network
+``inference_windowed`` / ``inference_multiscale`` (all windows of a
+scale in one backbone batch, maps merged on the device, one decode).
+
+Not ported yet (ROADMAP A12, A7): the int8 backbone and
 ``PoseEstimator.estimate_paf``.
 """
 
@@ -18,7 +22,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,8 +36,17 @@ from tfpose_tpu_torch.core.types import Human, PoseArrays
 from tfpose_tpu_torch.models import get_checkpoint_path, get_network
 from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.ops.assemble import Assembled
-from tfpose_tpu_torch.ops.decode import decode_batch, decode_maps, postprocess
-from tfpose_tpu_torch.pipeline.preprocess import prepare
+from tfpose_tpu_torch.ops.decode import (
+    decode,
+    decode_batch,
+    decode_maps,
+    postprocess,
+)
+from tfpose_tpu_torch.pipeline.multiscale import (
+    multiscale_forward,
+    windowed_forward,
+)
+from tfpose_tpu_torch.pipeline.preprocess import normalize, prepare
 from tfpose_tpu_torch.utils.draw import draw_humans as _draw_humans
 
 logger = logging.getLogger("TfPoseEstimator")
@@ -95,16 +108,25 @@ class TfPoseEstimator:
                                upsample_size=1.0)
 
     # ------------------------------------------------------------------
-    def _forward(self, imgs: np.ndarray, net_h: int, net_w: int
-                 ) -> torch.Tensor:
-        """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, 57) fp32."""
-        x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
-        x = prepare(x, net_h, net_w)
+    def _backbone(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalized (N, H, W, 3) on the device -> concat_stage7
+        (N, H/8, W/8, 57) fp32, with cuDNN's TF32 off."""
         cudnn = torch.backends.cudnn
         with torch.inference_mode(), cudnn.flags(
                 enabled=cudnn.enabled, benchmark=cudnn.benchmark,
                 deterministic=cudnn.deterministic, allow_tf32=False):
             return self.net(x)["concat_stage7"].float()
+
+    def _forward(self, imgs: np.ndarray, net_h: int, net_w: int
+                 ) -> torch.Tensor:
+        """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, 57) fp32."""
+        x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
+        return self._backbone(prepare(x, net_h, net_w))
+
+    def _forward_windows(self, wins: torch.Tensor) -> torch.Tensor:
+        """Windows (N, h, w, 3), uint8 or unrounded float, -> their
+        concat_stage7 maps in one backbone batch."""
+        return self._backbone(normalize(wins))
 
     def _decode_params(self, escalated: bool = False) -> DecodeParams:
         return (self.decode_params.escalated() if escalated
@@ -135,9 +157,25 @@ class TfPoseEstimator:
                 self.decode_params.max_peaks, parts.tolist())
             self._warned_saturation = True
 
-    @staticmethod
-    def _to_numpy(out: Assembled) -> Assembled:
-        return Assembled(*(t.cpu().numpy() for t in out))
+    def _decode_escalating(self, decode_fn: Callable[[DecodeParams],
+                                                     Assembled]) -> Assembled:
+        """``decode_fn(params)``, again with the escalated parameters when
+        the peak cap saturated; returns numpy arrays and notes the
+        saturation."""
+        out = decode_fn(self.decode_params)
+        if self._should_escalate(out.peak_saturated):
+            out = decode_fn(self._decode_params(True))
+        arrays = Assembled(*(t.cpu().numpy() for t in out))
+        self._note_saturation(arrays.peak_saturated)
+        return arrays
+
+    def _decode_merged(self, merged: torch.Tensor,
+                       upsample_size: float) -> List[Human]:
+        """Decode a merged (H/8, W/8, 57) map at ``upsample_size``."""
+        up_h = int(merged.shape[0] * float(upsample_size))
+        up_w = int(merged.shape[1] * float(upsample_size))
+        return self._humans(self._decode_escalating(
+            lambda p: decode(merged, up_h, up_w, p)))
 
     @staticmethod
     def _humans(arrays: Assembled) -> List[Human]:
@@ -155,8 +193,8 @@ class TfPoseEstimator:
 
         ``upsample_size`` is the decode-resolution ratio relative to the
         stride-8 feature map (reference ``resize_out_ratio``). An image
-        not at the target size is resized on the device (half-pixel
-        bilinear) when ``resize_to_default`` is set.
+        not at the target size is resized on the device when
+        ``resize_to_default`` is set (see :func:`prepare`).
         """
         if npimg is None:
             raise Exception(
@@ -172,20 +210,17 @@ class TfPoseEstimator:
         net_out = self._forward(npimg[None], net_h, net_w)[0]
         peaks_map, heat_up, paf_up = postprocess(
             net_out, up_h, up_w, self.decode_params)
-        out = decode_maps(peaks_map, paf_up, self.decode_params)
-        if self._should_escalate(out.peak_saturated):
-            out = decode_maps(peaks_map, paf_up, self._decode_params(True))
-        arrays = self._to_numpy(out)
+        arrays = self._decode_escalating(
+            lambda p: decode_maps(peaks_map, paf_up, p))
         self.heatMat = heat_up.cpu().numpy()
         self.pafMat = paf_up.cpu().numpy()
-        self._note_saturation(arrays.peak_saturated)
         logger.debug("inference in %.4f s", time.time() - t)
         return self._humans(arrays)
 
     def inference_batch(self, npimgs: Sequence[np.ndarray],
                         upsample_size: float = 1.0) -> List[List[Human]]:
         """Batched inference; each image is resized on the device to the
-        target size if it is not at it."""
+        target size if it is not at it (see :func:`prepare`)."""
         w, h = self.target_size
         up_h = int(h / 8 * upsample_size)
         up_w = int(w / 8 * upsample_size)
@@ -194,16 +229,42 @@ class TfPoseEstimator:
         else:  # images to resize: forward one by one
             net_out = torch.cat([self._forward(im[None], h, w)
                                  for im in npimgs])
-        out = decode_batch(net_out, up_h, up_w, self.decode_params)
-        if self._should_escalate(out.peak_saturated):
-            # below-cap images decode identically at larger K, so the
-            # whole batch is decoded again
-            out = decode_batch(net_out, up_h, up_w,
-                               self._decode_params(True))
-        arrays = self._to_numpy(out)
-        self._note_saturation(arrays.peak_saturated)
+        # on saturation the whole batch is decoded again: below-cap images
+        # decode identically at larger K
+        arrays = self._decode_escalating(
+            lambda p: decode_batch(net_out, up_h, up_w, p))
         return [self._humans(Assembled(*(a[i] for a in arrays)))
                 for i in range(len(npimgs))]
+
+    def inference_windowed(self, npimg: np.ndarray,
+                           upsample_size: float = 4.0,
+                           overlap: float = 0.2) -> List[Human]:
+        """Sliding-window inference for images larger than the network
+        input: network-size windows at ``overlap``, one backbone batch,
+        the maps merged on the device and decoded once at
+        ``upsample_size`` times the merged stride-8 grid."""
+        w, h = self.target_size
+        img = torch.as_tensor(np.ascontiguousarray(npimg), device=self.device)
+        with torch.inference_mode():
+            merged = windowed_forward(self._forward_windows, img, h, w,
+                                      overlap)
+        return self._decode_merged(merged, upsample_size)
+
+    def inference_multiscale(self, npimg: np.ndarray,
+                             scales: Sequence[float] = (1.0, 1.5, 2.0),
+                             upsample_size: float = 4.0,
+                             overlap: float = 0.2) -> List[Human]:
+        """Scale search: the image is evaluated at each scale with
+        overlapping network-size windows (one backbone batch per scale),
+        the stride-8 maps are merged across windows and averaged across
+        scales on the device, and decoded once."""
+        w, h = self.target_size
+        img = torch.as_tensor(np.ascontiguousarray(npimg), device=self.device)
+        with torch.inference_mode():
+            merged = multiscale_forward(self._forward_windows, img, h, w,
+                                        tuple(float(s) for s in scales),
+                                        overlap)
+        return self._decode_merged(merged, upsample_size)
 
     @staticmethod
     def draw_humans(npimg: np.ndarray, humans: List[Human],

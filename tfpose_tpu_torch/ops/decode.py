@@ -8,16 +8,17 @@ The JAX package picks its Pallas route by backend (``use_pallas``); the
 port takes one route on every device and each kernel wrapper picks the
 CUDA kernel for a CUDA tensor and its plain version for a CPU tensor:
 
-* :func:`decode` / :func:`decode_batch`: the raw-grid smooth+NMS+top-K
-  (:func:`smooth_nms_topk_raw`), the raw-grid PAF sampler
-  (:func:`score_candidates_raw_batch`), greedy connections, assembly —
-  the batch x part planes flattened into one kernel call each;
+* :func:`decode` / :func:`decode_batch`: smooth+NMS+top-K, PAF
+  scoring, greedy connections, assembly, the batch x part planes
+  flattened into one kernel call each. Shapes alone pick the kernels:
+  the raw-grid top-K (:func:`smooth_nms_topk_raw`) where the upsample is
+  an integer replication whose block fits (``can_use_phase_kernel``),
+  else the area-upsampled heat through :func:`smooth_nms_topk`; the
+  raw-grid PAF sampler (:func:`score_candidates_raw_batch`) at any
+  integer ratio, else the gather scorer on the area-upsampled PAF;
 * :func:`postprocess` + :func:`decode_maps` (the public single-image
   ``inference`` path, which also returns the maps): area upsample,
   :func:`smooth_nms`, ``top_peaks`` and the gather scorer.
-
-A non-integer upsample ratio needs ``smooth_nms_topk_pallas``'s port
-(ROADMAP B4), which does not exist yet; ``decode`` raises there.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from tfpose_tpu_torch.ops.assemble import Assembled, assemble_dense
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     can_use_phase_kernel,
     smooth_nms,
+    smooth_nms_topk,
     smooth_nms_topk_raw,
 )
 
@@ -71,29 +73,41 @@ def postprocess(net_out: torch.Tensor, up_h: int, up_w: int,
     return peaks_map, heat_up, paf_up
 
 
+def _integer_upsample(h8: int, w8: int, up_h: int, up_w: int) -> bool:
+    """Area upsampling by an integer factor is replication, so the raw
+    planes stand for the upsampled ones exactly."""
+    return up_h % h8 == 0 and up_w % w8 == 0 and up_h >= h8 and up_w >= w8
+
+
 def decode_batch(net_out: torch.Tensor, up_h: int, up_w: int,
                  params: DecodeParams) -> Assembled:
     """Decode (N, H/8, W/8, 57) network outputs; results have a leading
     N. The N*18 heat planes go through one top-K kernel call and the
-    N*19 pair planes through one PAF sampling call."""
+    N*19 pair planes through one PAF scoring call."""
     net_out = net_out.float()
     b, h8, w8 = net_out.shape[:3]
-    if not can_use_phase_kernel(h8, w8, up_h, up_w):
-        raise NotImplementedError(
-            f"decode at {up_h}x{up_w} from {h8}x{w8} needs a non-integer "
-            "upsample, whose kernel (smooth_nms_topk, ROADMAP B4) is not "
-            "ported yet")
-    hb = net_out[..., :NUM_PARTS].permute(1, 2, 0, 3).reshape(h8, w8, -1)
-    s, i = smooth_nms_topk_raw(hb, up_h // h8, up_w // w8,
-                               params.max_peaks, params.thresh_heat,
-                               params.smooth_kernel_size, params.smooth_sigma)
+    heat, pafm = net_out[..., :NUM_HEATMAP_CH], net_out[..., NUM_HEATMAP_CH:]
+    args = (params.max_peaks, params.thresh_heat, params.smooth_kernel_size,
+            params.smooth_sigma)
+    if can_use_phase_kernel(h8, w8, up_h, up_w, params.smooth_kernel_size):
+        hb = heat[..., :NUM_PARTS].permute(1, 2, 0, 3).reshape(h8, w8, -1)
+        s, i = smooth_nms_topk_raw(hb, up_h // h8, up_w // w8, *args)
+    else:
+        # plane b*18 + p of the upsampled heat, held channel-first: the
+        # (up_h, up_w, B*18) view reaches the kernel without a copy
+        heat_up = resize.resize_area(heat, up_h, up_w)[..., :NUM_PARTS]
+        planes = heat_up.permute(0, 3, 1, 2).reshape(-1, up_h, up_w)
+        s, i = smooth_nms_topk(planes.permute(1, 2, 0), *args)
     scores = s.reshape(b, NUM_PARTS, -1)
     idx = i.reshape(b, NUM_PARTS, -1).clamp(min=0)
     pk = nms.Peaks(x=idx % up_w, y=idx // up_w, score=scores,
                    valid=scores > params.thresh_heat)
-    cands = paf.score_candidates_raw_batch(pk, net_out[..., NUM_HEATMAP_CH:],
-                                           up_h, up_w, params,
-                                           prefix_valid=True)
+    if _integer_upsample(h8, w8, up_h, up_w):
+        cands = paf.score_candidates_raw_batch(pk, pafm, up_h, up_w, params,
+                                               prefix_valid=True)
+    else:
+        cands = paf.score_candidates_batch(
+            pk, resize.resize_area(pafm, up_h, up_w), params)
     conns = paf.greedy_connections(cands, params)
     return _normalise_coords(assemble_dense(pk, conns, params), up_w, up_h)
 

@@ -29,6 +29,7 @@ BUILD_TIMEOUT_S = 300
 _libs: Dict[str, ctypes.CDLL] = {}
 _launchers: Dict[Tuple[str, str], Callable] = {}
 build_log: Dict[str, str] = {}   # source stem -> nvcc output (ptxas -v)
+build_seconds: Dict[str, float] = {}  # source stem -> seconds to its build
 
 
 def _nvcc() -> str:
@@ -56,8 +57,8 @@ def build_dir() -> str:
 
 def build_all() -> float:
     """Compile every source that has no library yet, one ``nvcc`` per
-    source, in parallel. Returns the seconds spent; raises with nvcc's
-    output on failure or timeout."""
+    source, in parallel. Returns the seconds spent (each source's own in
+    ``build_seconds``); raises with nvcc's output on failure or timeout."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     nvcc = _nvcc()
@@ -71,27 +72,34 @@ def build_all() -> float:
         if os.path.exists(target):
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
+        log = open(f"{tmp}.log", "w+")
         cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name)]
-        procs[stem] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True), tmp, target)
+        procs[stem] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       log, tmp, target)
     failures = []
-    for stem, (proc, tmp, target) in procs.items():
-        try:
-            out, _ = proc.communicate(
-                timeout=max(1.0, BUILD_TIMEOUT_S
-                            - (time.perf_counter() - t0)))
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            out, _ = proc.communicate()
-            failures.append(f"{stem}: nvcc timed out after "
-                            f"{BUILD_TIMEOUT_S} s\n{out}")
-            continue
-        build_log[stem] = out
-        if proc.returncode != 0:
-            failures.append(f"{stem}: nvcc exit {proc.returncode}\n{out}")
-        else:
-            os.replace(tmp, target)
+    while procs:
+        for stem, (proc, log, tmp, target) in list(procs.items()):
+            timed_out = proc.poll() is None
+            if timed_out:
+                if time.perf_counter() - t0 <= BUILD_TIMEOUT_S:
+                    continue
+                proc.kill()
+                proc.wait()
+            del procs[stem]
+            build_seconds[stem] = time.perf_counter() - t0
+            log.seek(0)
+            out = build_log[stem] = log.read()
+            log.close()
+            os.remove(log.name)
+            if timed_out:
+                failures.append(f"{stem}: nvcc timed out after "
+                                f"{BUILD_TIMEOUT_S} s\n{out}")
+            elif proc.returncode != 0:
+                failures.append(f"{stem}: nvcc exit {proc.returncode}\n{out}")
+            else:
+                os.replace(tmp, target)
+        time.sleep(0.05)
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0

@@ -1,6 +1,6 @@
 """Gaussian smooth + 3x3 NMS kernels of the decode path.
 
-Port of ``tfpose_tpu/ops/pallas/smooth_nms.py``. Two CUDA kernels, each
+Port of ``tfpose_tpu/ops/pallas/smooth_nms.py``. Three CUDA kernels, each
 with its plain PyTorch version beside it:
 
 * :func:`smooth_nms` (``csrc/smooth_nms.cu``) replaces
@@ -13,6 +13,18 @@ with its plain PyTorch version beside it:
   stride-8 grid, then 3x3 NMS with a threshold and an exact top-K per
   plane (scores descending, ties to the lower flat index; empty slots
   hold score 0 and index -1). The upsampled map never exists.
+* :func:`smooth_nms_topk` (``csrc/smooth_nms_topk.cu``) replaces
+  ``smooth_nms_topk_pallas``: the same blur, NMS, threshold and top-K on
+  an already-upsampled (H, W, C) map, for ratios that are not an integer
+  replication and for planes whose raw-grid block does not fit.
+
+The route between the two top-K kernels depends on shapes only
+(:func:`can_use_phase_kernel`): the raw-grid kernel needs an integer
+factor of 1..8 and a block within Hopper's shared memory. The second
+condition stands for the JAX package's VMEM budget but is tighter: a
+1280x720 frame in 432x368 windows merges to a 90x160 grid, which the
+JAX package decodes at 4x through its raw-grid kernel and the port
+through :func:`smooth_nms_topk` (the two kernels select the same peaks).
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; anything else raises. Each wrapper counts its
@@ -31,9 +43,14 @@ from tfpose_tpu_torch.ops.gaussian import gauss_kernel_1d, smooth
 from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.nms import max3x3, nms, stable_topk
 
-# Candidate-list capacity (peaks per plane) of the top-K kernel's shared
-# memory; a plane with more peaks falls back to selection by rounds.
+# Candidate-list capacity (peaks per plane) of the raw-grid top-K kernel's
+# shared memory; a plane with more peaks falls back to selection by rounds.
 TOPK_CAP = 2048
+# Peaks per plane that the full-resolution top-K kernel sorts in shared
+# memory; a plane with more is cut to its top K by a radix select first.
+LIST_CAP = 4096
+# Result slots per plane, as in the JAX kernels' (8, 128) result tile.
+MAX_K = 1024
 # Largest dynamic shared memory a block may use on Hopper (bytes).
 MAX_SMEM = 232448
 
@@ -108,43 +125,46 @@ def _phase_weights(kern, f: int, p: int):
     also outside [0, f*n). Summed in float64, then cast to float32, as
     in the JAX package. Returns ((f, n_d) weights, dmin, dmax).
     """
-    nk = len(kern)
-    dmin = min(int(np.floor((a - p) / f)) for a in range(f))
-    dmax = max(int(np.floor((a + nk - 1 - p) / f)) for a in range(f))
+    dmin, dmax = _phase_range(f, len(kern), p)
     w = np.zeros((f, dmax - dmin + 1), np.float64)
     for a in range(f):
-        for k in range(nk):
-            d = int(np.floor((a + k - p) / f))
-            w[a, d - dmin] += kern[k]
+        for k in range(len(kern)):
+            w[a, (a + k - p) // f - dmin] += kern[k]
     return w.astype(np.float32), dmin, dmax
 
 
-def can_use_phase_kernel(h8: int, w8: int, up_h: int, up_w: int) -> bool:
-    """The raw-grid path is exact iff the upsample is a pure integer
-    replication; factors stay within 1..8 as in the JAX package."""
+def _phase_range(f: int, nk: int, p: int):
+    """(dmin, dmax): the raw-grid offsets an ``nk``-tap blur padded by
+    ``p`` reaches from any phase at factor ``f``."""
+    return (min((a - p) // f for a in range(f)),
+            max((a + nk - 1 - p) // f for a in range(f)))
+
+
+def can_use_phase_kernel(h8: int, w8: int, up_h: int, up_w: int,
+                         kernlen: int = 25) -> bool:
+    """The raw-grid kernel is exact iff the upsample is a pure integer
+    replication; factors stay within 1..8 as in the JAX package, and one
+    plane's block must fit a Hopper block's shared memory (the port's
+    counterpart of the JAX package's VMEM budget)."""
     if h8 <= 0 or w8 <= 0 or up_h % h8 or up_w % w8:
         return False
     fy, fx = up_h // h8, up_w // w8
-    return 1 <= fy <= 8 and 1 <= fx <= 8
+    if not (1 <= fy <= 8 and 1 <= fx <= 8):
+        return False
+    (dvmin, dvmax), (dhmin, dhmax) = (_phase_range(f, kernlen, kernlen // 2)
+                                      for f in (fy, fx))
+    smem = topk_raw_smem_bytes(h8, w8, fy, fx, dvmax - dvmin + 1,
+                               dhmax - dhmin + 1, TOPK_CAP)
+    return smem <= MAX_SMEM
 
 
 def smooth_nms_topk_raw_plain(heat8: torch.Tensor, fy: int, fx: int,
                               k_top: int, thresh: float,
                               kernlen: int = 25, nsig: float = 3.0):
     """The plain version of :func:`smooth_nms_topk_raw`: upsample by
-    replication, separable blur, 3x3 max, threshold, stable top-K."""
-    h8, w8, c = heat8.shape
+    replication, then :func:`smooth_nms_topk_plain`."""
     up = heat8.repeat_interleave(fy, 0).repeat_interleave(fx, 1)
-    sm = smooth(up, kernlen, nsig).permute(2, 0, 1)          # (C, H, W)
-    neg = torch.tensor(-float("inf"), device=sm.device)
-    peaks = torch.where((sm >= max3x3(sm)) & (sm > thresh), sm, neg)
-    flat = peaks.reshape(c, -1)
-    if flat.shape[1] < k_top:
-        flat = torch.cat([flat, neg.expand(c, k_top - flat.shape[1])], 1)
-    vals, order = stable_topk(flat, k_top)
-    found = vals > neg
-    return (torch.where(found, vals, torch.zeros_like(vals)),
-            torch.where(found, order, torch.full_like(order, -1)).int())
+    return smooth_nms_topk_plain(up, k_top, thresh, kernlen, nsig)
 
 
 @functools.lru_cache(maxsize=32)
@@ -207,3 +227,85 @@ def smooth_nms_topk_raw(heat8: torch.Tensor, fy: int, fx: int, k_top: int,
 
 
 smooth_nms_topk_raw.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K4: smooth + NMS + top-K on the upsampled map
+# ---------------------------------------------------------------------------
+
+def blur_in_tap_order(planes: torch.Tensor, kernlen: int = 25,
+                      nsig: float = 3.0) -> torch.Tensor:
+    """(C, H, W) -> the separable blur with zero SAME padding, vertical
+    pass first, each pass summed tap by tap as the JAX kernel writes it:
+    ``acc = k0 * x0``, then ``acc = acc + k_t * x_t``. Every product and
+    sum is its own op, so nothing fuses into a multiply-add and the CUDA
+    kernel, which rounds each step, gives the same bits."""
+    taps = _taps(kernlen, float(nsig), str(planes.device))
+    p = kernlen // 2
+    h, w = planes.shape[-2:]
+    x = torch.nn.functional.pad(planes.float(), (p, p, p, p))
+    acc = taps[0] * x[:, 0:h, :]
+    for t in range(1, kernlen):
+        acc = acc + taps[t] * x[:, t:t + h, :]
+    sm = taps[0] * acc[:, :, 0:w]
+    for t in range(1, kernlen):
+        sm = sm + taps[t] * acc[:, :, t:t + w]
+    return sm
+
+
+def smooth_nms_topk_plain(heat: torch.Tensor, k_top: int, thresh: float,
+                          kernlen: int = 25, nsig: float = 3.0):
+    """The plain version of :func:`smooth_nms_topk`: blur in tap order,
+    3x3 max, threshold, stable top-K."""
+    c = heat.shape[2]
+    sm = blur_in_tap_order(heat.permute(2, 0, 1), kernlen, nsig)
+    neg = torch.tensor(-float("inf"), device=sm.device)
+    peaks = torch.where((sm >= max3x3(sm)) & (sm > thresh), sm, neg)
+    flat = peaks.reshape(c, -1)
+    if flat.shape[1] < k_top:
+        flat = torch.cat([flat, neg.expand(c, k_top - flat.shape[1])], 1)
+    vals, order = stable_topk(flat, k_top)
+    found = vals > neg
+    return (torch.where(found, vals, torch.zeros_like(vals)),
+            torch.where(found, order, torch.full_like(order, -1)).int())
+
+
+def smooth_nms_topk(heat: torch.Tensor, k_top: int, thresh: float,
+                    kernlen: int = 25, nsig: float = 3.0,
+                    cap: int = LIST_CAP):
+    """(H, W, C) fp32 upsampled heat -> (scores (C, K) f32, flat idx
+    (C, K) int32 into the H*W plane): blur, 3x3 NMS, ``> thresh``, top-K
+    by score, ties to the lower index; empty slots hold 0 and -1.
+
+    ``cap`` (``k_top`` .. ``LIST_CAP``) is how many peaks a plane may
+    have for the kernel to sort them all in shared memory; beyond it the
+    kernel first cuts them to K by a radix select (same result). The
+    kernel reads planes channel-first: a (H, W, C) view of a (C, H, W)
+    tensor is passed through without a copy.
+    """
+    _check_input(heat, 3, "smooth_nms_topk")
+    if not 1 <= k_top <= MAX_K:
+        raise ValueError(f"k_top must be in 1..{MAX_K}, got {k_top}")
+    if not k_top <= cap <= LIST_CAP:
+        raise ValueError(f"cap must be in k_top..{LIST_CAP}, got {cap}")
+    if heat.device.type == "cpu":
+        return smooth_nms_topk_plain(heat, k_top, thresh, kernlen, nsig)
+    h, w, c = heat.shape
+    planes = heat.permute(2, 0, 1).contiguous()
+    taps = _taps(kernlen, float(nsig), str(heat.device))
+    lists = torch.empty(c * h * w, dtype=torch.int64, device=heat.device)
+    counts = torch.zeros(c, dtype=torch.int32, device=heat.device)
+    scores = torch.empty((c, k_top), dtype=torch.float32, device=heat.device)
+    idx = torch.empty((c, k_top), dtype=torch.int32, device=heat.device)
+    fn = build.launcher("smooth_nms_topk", "smooth_nms_topk_launch",
+                        [_ptr] * 6 + [_int] * 5
+                        + [ctypes.c_float, _int, _ptr])
+    status = fn(planes.data_ptr(), taps.data_ptr(), lists.data_ptr(),
+                counts.data_ptr(), scores.data_ptr(), idx.data_ptr(), c, h,
+                w, kernlen, k_top, float(thresh), cap, _stream(heat))
+    build.check("smooth_nms_topk", status, "smooth_nms_topk")
+    smooth_nms_topk.launches += 1
+    return scores, idx
+
+
+smooth_nms_topk.launches = 0

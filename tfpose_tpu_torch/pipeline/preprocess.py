@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from tfpose_tpu_torch.ops.resize import resize_bilinear
+from tfpose_tpu_torch.ops.resize import resize_area, resize_bilinear
 
 
 def normalize(img: torch.Tensor) -> torch.Tensor:
@@ -14,10 +14,27 @@ def normalize(img: torch.Tensor) -> torch.Tensor:
     return img.float() / 256.0 - 0.5
 
 
+def downscale_area(img: torch.Tensor, target_h: int,
+                   target_w: int) -> torch.Tensor:
+    """uint8 (..., H, W, 3) -> uint8 (..., target_h, target_w, 3) by area
+    averaging, rounded half up: the JAX estimator's host resize
+    (``cv2.INTER_AREA``) when the image shrinks on both axes. It equals
+    cv2 bit for bit at integer factors (864x736 -> 432x368); elsewhere a
+    sum that lands within an ulp of .5 can round the other way."""
+    x = resize_area(img.float(), target_h, target_w)
+    return torch.floor(x + 0.5).clamp(0, 255).to(torch.uint8)
+
+
 def prepare(img: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     """uint8 (..., H, W, 3) -> normalized float (..., target_h, target_w, 3)
-    via bilinear resize on the tensor's device."""
-    x = normalize(img)
-    if x.shape[-3] != target_h or x.shape[-2] != target_w:
-        x = resize_bilinear(x, target_h, target_w)
-    return x
+    on the tensor's device. An image at least as large as the target on
+    both axes is area-downscaled to uint8 (:func:`downscale_area`), as
+    the JAX estimator does; one that is smaller on an axis is resized
+    bilinearly after normalizing (``cv2.INTER_AREA`` is not an area
+    average when it enlarges, ROADMAP Queue C)."""
+    h, w = img.shape[-3], img.shape[-2]
+    if (h, w) == (target_h, target_w):
+        return normalize(img)
+    if h >= target_h and w >= target_w:
+        return normalize(downscale_area(img, target_h, target_w))
+    return resize_bilinear(normalize(img), target_h, target_w)
