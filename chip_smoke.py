@@ -10,7 +10,11 @@ Phases, each printing a flushed start and end line with elapsed seconds:
   2. kernel parity: each kernel against its plain PyTorch version on the
      card, at the main path's shapes (B = 1 and 8, K = 32 and 128; the
      full-resolution top-K at 360x640x18 and 115x135x144, on noise and
-     on a plateau with more peaks than its shared-memory list);
+     on a plateau with more peaks than its shared-memory list; both top-K
+     kernels also through their radix-select path and at a blur length
+     or factor that runs their run-time loops; the raw-grid top-K also
+     bit for bit against its own phase arithmetic in PyTorch, on a
+     plateau too);
   3. main path: the mobilenet_thin estimator with the committed
      ``thin368_coco`` weights and 432x368 input, path by path, each with
      the launch counts set to 0 just before it and read just after:
@@ -22,7 +26,10 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      and the raw-grid one on no 720p path, and the humans must equal
      those of the same estimator on the CPU. The card's area downscale
      of a 1280x720 frame is held against the CPU's;
-  4. timing (CUDA events, after warm-up): each kernel, ``inference``
+  4. timing (CUDA events, after warm-up; device time per launch from
+     ``torch.profiler``): each kernel (the two top-K kernels at both
+     shapes of their paths: B = 1 and 8 at 4x; 360x640x18 and
+     115x135x144), ``inference``
      latency, ``inference_batch`` images per second at B = 1, 8, 16 and
      at upsample 2.5, and ``inference_windowed`` / ``inference_multiscale``
      latency on 1280x720 frames; ``torch.profiler`` breakdowns.
@@ -191,6 +198,45 @@ def k4_compare(got, want):
     return d
 
 
+def k1_phase_reference(heat8, fy, fx, k_top, thresh, kernlen=25, nsig=3.0):
+    """The raw-grid top-K's own arithmetic in PyTorch, one op at a time:
+    the vertical phase sums V, then the smoothed values S, each summed in
+    tap order with taps t > 0 of weight 0 skipped, then the plain
+    version's 3x3 NMS, threshold and stable top-K. (h8, w8, C) ->
+    (scores, idx). Unlike the plain version (a blur of the replicated
+    plane), it rounds as the kernel does, so the kernel equals it bit for
+    bit, on a plateau too, where the two summation orders pick other
+    peaks among equal values."""
+    import torch
+    import torch.nn.functional as F
+
+    from tfpose_tpu_torch.ops.gaussian import gauss_kernel_1d
+    from tfpose_tpu_torch.ops.kernels.smooth_nms import (
+        _phase_weights, topk_of_smoothed)
+
+    p = kernlen // 2
+    kern = gauss_kernel_1d(kernlen, nsig)
+    wv, dvmin, _ = _phase_weights(kern, fy, p)
+    wh, dhmin, _ = _phase_weights(kern, fx, p)
+    h8, w8, c = heat8.shape
+    nv, nh = wv.shape[1], wh.shape[1]
+    x = F.pad(heat8.permute(2, 0, 1).float(), (-dhmin, nh, -dvmin, nv))
+
+    def taps_sum(w, view):
+        acc = float(w[0]) * view(0)
+        for t in range(1, len(w)):
+            if w[t] != 0:
+                acc = acc + float(w[t]) * view(t)
+        return acc
+
+    vw = w8 + nh - 1
+    v = torch.stack([taps_sum(wv[a], lambda t: x[:, t:t + h8, :vw])
+                     for a in range(fy)], 2).reshape(c, fy * h8, vw)
+    sm = torch.stack([taps_sum(wh[b], lambda t: v[:, :, t:t + w8])
+                      for b in range(fx)], 3).reshape(c, fy * h8, fx * w8)
+    return topk_of_smoothed(sm, k_top, thresh)
+
+
 WINDOWED = "inference_windowed 1280x720 x2 (4x)"
 MULTISCALE = "inference_multiscale 1280x720 scales (1.0, 1.5) (4x)"
 BATCH25 = "inference_batch B=8 (2.5x)"
@@ -294,7 +340,8 @@ def main() -> int:
                                        "found built from these sources"))
         for stem, out in sorted(build.build_log.items()):
             for line in out.splitlines():
-                if "registers" in line or "spill" in line or "smem" in line:
+                if any(w in line for w in ("entry function", "registers",
+                                           "spill")):
                     log(f"  ptxas {stem}: {line.strip()}")
 
     # ---- inputs at the main path's shapes: B = 8 rendered net outputs
@@ -308,16 +355,22 @@ def main() -> int:
     def heat8_of(b):  # (46, 54, b*18), as decode_batch flattens it
         return nets[:b, ..., :18].permute(1, 2, 0, 3).reshape(46, 54, -1)
 
-    def k1_pair(x, k, cap=None):
+    def k1_pair(x, k, cap=None, f=4, plain=True):
+        """K1 against its plain version (indices exact, scores rtol 1e-5)
+        and bit for bit against its own phase arithmetic."""
         kw = {} if cap is None else {"cap": cap}
-        s, i = smooth_nms_topk_raw(x.contiguous(), 4, 4, k, 0.05, **kw)
-        s0, i0 = smooth_nms_topk_raw_plain(x, 4, 4, k, 0.05)
+        s, i = smooth_nms_topk_raw(x.contiguous(), f, f, k, 0.05, **kw)
+        s1, i1 = k1_phase_reference(x, f, f, k, 0.05)
         torch.cuda.synchronize()
-        check(torch.equal(i, i0), f"K1 indices differ (K={k}, cap={cap})")
-        rel = ((s - s0).abs() / s0.abs().clamp(min=1e-30)).max().item()
-        check(rel <= 1e-5, f"K1 scores rel err {rel:.3g} > 1e-5")
-        err["smooth_nms_topk_raw"] = max(err["smooth_nms_topk_raw"],
-                                         (s - s0).abs().max().item())
+        check(torch.equal(i, i1) and torch.equal(s, s1),
+              f"K1 differs from its phase arithmetic (K={k}, cap={cap}, f={f})")
+        if plain:
+            s0, i0 = smooth_nms_topk_raw_plain(x, f, f, k, 0.05)
+            check(torch.equal(i, i0), f"K1 indices differ (K={k}, cap={cap})")
+            rel = ((s - s0).abs() / s0.abs().clamp(min=1e-30)).max().item()
+            check(rel <= 1e-5, f"K1 scores rel err {rel:.3g} > 1e-5")
+            err["smooth_nms_topk_raw"] = max(err["smooth_nms_topk_raw"],
+                                             (s - s0).abs().max().item())
         return s, i
 
     with phase("2 kernel parity"):
@@ -330,8 +383,19 @@ def main() -> int:
             s, i = k1_pair(noise, k)
             log(f"K1 noise K={k}: {int((i >= 0).sum())} peaks"
                 f"{' (saturated)' if bool((i >= 0).all()) else ''}")
-        k1_pair(noise, 32, cap=16)  # more peaks than the list: rounds path
-        log("K1 selection by rounds (cap=16) equals the plain version")
+        for k in (32, 128):
+            k1_pair(noise, k, cap=16)  # more peaks than the list: radix path
+        log("K1 radix select (cap=16) equals the plain version")
+        s, i = k1_pair(heat8_of(8), 32, f=2)
+        log(f"K1 at 2x (run-time loops) B=8: {int((i >= 0).sum())} peaks, "
+            f"indices equal")
+        flat = torch.full((46, 54, 2), 0.5, device=dev)
+        flat[..., 1] = 0.01  # a plane with no peak above 0.05
+        for cap in (LIST_CAP, 16):
+            s, i = k1_pair(flat, 128, cap=cap, plain=False)
+        check(bool((i[1] == -1).all()), "K1 found a peak below thresh")
+        log(f"K1 plateau K=128: {int((i[0] >= 0).sum())} peaks, bit for bit "
+            f"equal to its phase arithmetic (cap {LIST_CAP} and 16)")
 
         for up in (4, 1):
             heat_up = resize.resize_area(nets[0, ..., :19], 46 * up,
@@ -391,6 +455,10 @@ def main() -> int:
         for k in (32, 128):
             k4_pair(noise720, k, "noise")
         k4_pair(planes_up(nets, 115, 135), 32, "B=8 at 2.5x")
+        got = smooth_nms_topk(x720, 32, 0.05, kernlen=13)
+        d = k4_compare(got, smooth_nms_topk_plain(x720, 32, 0.05, 13))
+        log(f"K4 13 taps (run-time loops) {tuple(x720.shape)}: "
+            f"{int((got[1] >= 0).sum())} peaks, indices equal, |d| {d:.3g}")
         plateau = torch.full((360, 640, 2), 0.5, device=dev)
         plateau[..., 1] = 0.01  # a plane with no peak above 0.05
         sm = blur_in_tap_order(plateau.permute(2, 0, 1))
@@ -459,12 +527,10 @@ def main() -> int:
             f"{int((d > 0).sum())} of {d.numel()} values differ "
             f"({float((d > 0).float().mean()):.3g}), max |d| {int(d.max())}")
 
-    timings = {}
     with phase("4 timing"):
         tag = f"[{smi}]"
-        heat8 = heat8_of(1).contiguous()
         heat_up = resize.resize_area(nets[0, ..., :19], 184, 216).contiguous()
-        s, i = smooth_nms_topk_raw(heat8, 4, 4, 32, 0.05)
+        s, i = smooth_nms_topk_raw(heat8_of(1).contiguous(), 4, 4, 32, 0.05)
         i = i.reshape(1, 18, 32).clamp(min=0)
         pk = nms.Peaks(x=i % 216, y=i // 216, score=s.reshape(1, 18, 32),
                        valid=s.reshape(1, 18, 32) > 0.05)
@@ -473,13 +539,20 @@ def main() -> int:
         kw = dict(s_paf=10, thresh=0.05)
 
         # bytes and operations of this run's inputs
-        wv, _, wh, _ = _phase_tables(4, 4, 25, 3.0, str(dev))
+        wv, _, wh = _phase_tables(4, 4, 25, 3.0, str(dev))[:3]
         nv, nh = wv.shape[1], wh.shape[1]
-        c1 = heat8.shape[2]
-        k1_bytes = heat8.numel() * 4 + (wv.numel() + wh.numel()) * 4 \
-            + c1 * 32 * 8
-        k1_ops = c1 * (184 * (54 + nh - 1) * 2 * nv + 184 * 216 * 2 * nh
-                       + 184 * 216 * 8)
+
+        def k1_cost(x):
+            c1 = x.shape[2]
+            return (x.numel() * 4 + (wv.numel() + wh.numel()) * 4
+                    + c1 * 32 * 8,
+                    c1 * (184 * (54 + nh - 1) * 2 * nv + 184 * 216 * 2 * nh
+                          + 184 * 216 * 8))
+
+        def k4_cost(x):
+            return (x.numel() * 4 + x.shape[2] * 32 * 8,
+                    x.numel() * (2 * (2 * 25 - 1) + 9))
+
         k2_bytes = 2 * heat_up.numel() * 4
         k2_ops = heat_up.numel() * (2 * 2 * 25 + 8)
         planes, iy = samples[0], samples[1]
@@ -490,60 +563,89 @@ def main() -> int:
             + p3 * 4 + 2 * p3 * kk * 4
         k3_ops = live * s3 * 5
         # K4 at the windowed path's own input: the merged map of the
-        # first 1280x720 frame, upsampled 4x
+        # first 1280x720 frame, upsampled 4x; and at B=8 at 2.5x
         with torch.inference_mode():
             merged = windowed_forward(
                 est._forward_windows, torch.from_numpy(frames[0]).to(dev),
                 368, 432)
         x4 = planes_up(merged[None], 360, 640)
-        k4_bytes = x4.numel() * 4 + x4.shape[2] * 32 * 8
-        k4_ops = x4.numel() * (2 * (2 * 25 - 1) + 9)
-        cases = {
-            "smooth_nms_topk_raw": (
-                lambda: smooth_nms_topk_raw(heat8, 4, 4, 32, 0.05),
-                lambda: smooth_nms_topk_raw_plain(heat8, 4, 4, 32, 0.05),
-                k1_bytes, k1_ops,
-                "tfpose_tpu_torch/csrc/smooth_nms_topk_raw.cu",
-                "tfpose_tpu/ops/pallas/smooth_nms.py:371",
-                f"(46, 54, 18) K=32"),
-            "smooth_nms": (
-                lambda: smooth_nms(heat_up),
-                lambda: smooth_nms_plain(heat_up),
-                k2_bytes, k2_ops, "tfpose_tpu_torch/csrc/smooth_nms.cu",
-                "tfpose_tpu/ops/pallas/smooth_nms.py:227",
-                f"{tuple(heat_up.shape)}"),
-            "paf_sample_scores": (
-                lambda: paf_sample_scores(*samples, **kw),
-                lambda: paf_sample_scores_plain(*samples, **kw),
-                k3_bytes, k3_ops, "tfpose_tpu_torch/csrc/paf_score.cu",
-                "tfpose_tpu/ops/pallas/paf_score.py:104",
-                f"{tuple(iy.shape)} live rows {int(samples[5].sum())}"),
-            "smooth_nms_topk": (
-                lambda: smooth_nms_topk(x4, 32, 0.05),
-                lambda: smooth_nms_topk_plain(x4, 32, 0.05),
-                k4_bytes, k4_ops, "tfpose_tpu_torch/csrc/smooth_nms_topk.cu",
-                "tfpose_tpu/ops/pallas/smooth_nms.py:180",
-                f"{tuple(x4.shape)} K=32"),
+        x25 = planes_up(nets, 115, 135)
+        x1b8, x1b1 = heat8_of(8).contiguous(), heat8_of(1).contiguous()
+        # (kernel, shape, kernel call, plain call, (bytes, ops)); a
+        # kernel's first case is the one its JSON entry reports
+        cases = [
+            ("smooth_nms_topk_raw", "B=8 (46, 54, 144) 4x K=32",
+             lambda: smooth_nms_topk_raw(x1b8, 4, 4, 32, 0.05),
+             lambda: smooth_nms_topk_raw_plain(x1b8, 4, 4, 32, 0.05),
+             k1_cost(x1b8)),
+            ("smooth_nms_topk_raw", "B=1 (46, 54, 18) 4x K=32",
+             lambda: smooth_nms_topk_raw(x1b1, 4, 4, 32, 0.05),
+             lambda: smooth_nms_topk_raw_plain(x1b1, 4, 4, 32, 0.05),
+             k1_cost(x1b1)),
+            ("smooth_nms", f"{tuple(heat_up.shape)}",
+             lambda: smooth_nms(heat_up), lambda: smooth_nms_plain(heat_up),
+             (k2_bytes, k2_ops)),
+            ("paf_sample_scores",
+             f"{tuple(iy.shape)} live rows {int(samples[5].sum())}",
+             lambda: paf_sample_scores(*samples, **kw),
+             lambda: paf_sample_scores_plain(*samples, **kw),
+             (k3_bytes, k3_ops)),
+            ("smooth_nms_topk", f"{tuple(x4.shape)} K=32",
+             lambda: smooth_nms_topk(x4, 32, 0.05),
+             lambda: smooth_nms_topk_plain(x4, 32, 0.05), k4_cost(x4)),
+            ("smooth_nms_topk", f"{tuple(x25.shape)} K=32",
+             lambda: smooth_nms_topk(x25, 32, 0.05),
+             lambda: smooth_nms_topk_plain(x25, 32, 0.05), k4_cost(x25)),
+        ]
+        sources = {
+            "smooth_nms_topk_raw": ("tfpose_tpu_torch/csrc/smooth_nms_topk_raw.cu",
+                                    "tfpose_tpu/ops/pallas/smooth_nms.py:371"),
+            "smooth_nms": ("tfpose_tpu_torch/csrc/smooth_nms.cu",
+                           "tfpose_tpu/ops/pallas/smooth_nms.py:227"),
+            "paf_sample_scores": ("tfpose_tpu_torch/csrc/paf_score.cu",
+                                  "tfpose_tpu/ops/pallas/paf_score.py:104"),
+            "smooth_nms_topk": ("tfpose_tpu_torch/csrc/smooth_nms_topk.cu",
+                                "tfpose_tpu/ops/pallas/smooth_nms.py:180"),
         }
-        kernels = []
-        for name, (fn, plain, nbytes, ops, src, rep, shape) in cases.items():
-            med, p90 = time_cuda(fn)
-            pmed, pp90 = time_cuda(plain)
-            bms, by = bound_ms(nbytes, ops)
-            log(f"time {name} {shape}: kernel median {med:.5f} ms p90 "
-                f"{p90:.5f} ms | plain median {pmed:.5f} ms p90 {pp90:.5f} ms"
-                f" | bound {bms:.6f} ms ({by}: {nbytes} B, {ops} op) {tag}")
-            kernels.append({
-                "name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": launches[name],
-                "max_abs_err": err[name], "ms": med, "plain_ms": pmed,
-                "bound_ms": bms, "bound_by": by, "library_ms": None})
-            timings[name] = (med, p90)
-
-        ours = {"smooth_nms_topk_raw": ("topk_raw_kernel",),
+        ours = {"smooth_nms_topk_raw": ("phase_peaks_kernel", "select_kernel"),
                 "smooth_nms": ("smooth_nms_kernel",),
                 "paf_sample_scores": ("paf_sample_kernel",),
-                "smooth_nms_topk": ("peaks_kernel", "select_kernel")}
+                "smooth_nms_topk": ("blur_peaks_kernel", "select_kernel")}
+
+        def device_ms(name, rows):
+            """Device ms per launch of ``name``'s own kernels in a
+            profile, or None where one of them is missing."""
+            hits = [[r for r in rows if sym in r[0]] for sym in ours[name]]
+            if not all(hits):
+                return None, []
+            per = [h[0][1] / h[0][2] for h in hits]
+            return sum(per), per
+
+        kernels = {}
+        for name, shape, fn, plain, (nbytes, ops) in cases:
+            med, p90 = time_cuda(fn)
+            pmed, pp90 = time_cuda(plain)
+            dms, per = device_ms(name, profile_calls(fn, n=20)[3])
+            check(dms is not None, f"no device time for {name} {shape}")
+            bms, by = bound_ms(nbytes, ops)
+            log(f"time {name} {shape}: kernel median {med:.5f} ms p90 "
+                f"{p90:.5f} ms | device {dms:.5f} ms per launch "
+                f"({' + '.join(f'{t:.5f}' for t in per)}) | plain median "
+                f"{pmed:.5f} ms p90 {pp90:.5f} ms | bound {bms:.6f} ms "
+                f"({by}: {nbytes} B, {ops} op) {tag}")
+            case = {"shape": shape, "ms": med, "p90_ms": p90,
+                    "device_ms": dms, "plain_ms": pmed, "bound_ms": bms,
+                    "bound_by": by}
+            if name not in kernels:
+                kernels[name] = {
+                    "name": name, "route": "cuda", "source": sources[name][0],
+                    "replaces": sources[name][1], "launches": launches[name],
+                    "max_abs_err": err[name], "ms": med, "plain_ms": pmed,
+                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "cases": []}
+            kernels[name]["cases"].append(case)
+        kernels = list(kernels.values())
+
         for what, fn in (
                 ("inference", lambda: est.inference(imgs[0],
                                                     upsample_size=4.0)),
@@ -559,11 +661,10 @@ def main() -> int:
                 f"{nk:.0f} kernel launches per call {tag}")
             for key, ms, cnt in rows[:8]:
                 log(f"  {ms:.4f} ms  x{cnt:.0f}  {key[:90]}")
-            for name, syms in ours.items():
-                hits = [[r for r in rows if sym in r[0]] for sym in syms]
-                if all(hits):
-                    per = [h[0][1] / h[0][2] for h in hits]
-                    log(f"  device time of {name}: {sum(per):.5f} ms per "
+            for name in ours:
+                dms, per = device_ms(name, rows)
+                if dms is not None:
+                    log(f"  device time of {name}: {dms:.5f} ms per "
                         f"launch ({' + '.join(f'{t:.5f}' for t in per)})")
 
         med, p90 = time_host(lambda: est.inference(imgs[0],

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k2_compare, k4_compare, planes_up
+from chip_smoke import k1_phase_reference, k2_compare, k4_compare, planes_up
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.ops import nms, paf, resize
 from tfpose_tpu_torch.ops.kernels.paf_score import (
@@ -41,13 +41,43 @@ def nets():
 
 
 @pytest.mark.parametrize("k", [32, 128])
-@pytest.mark.parametrize("cap", [2048, 8])
+@pytest.mark.parametrize("cap", [4096, 8])
 def test_topk_raw_kernel(nets, k, cap):
+    """184x216 planes (not a multiple of the 32x64 tile); ``cap=8``
+    takes the radix-select path. Indices exact, scores rtol 1e-5 against
+    the plain version, bit for bit against the kernel's own phase
+    arithmetic."""
     heat8 = nets[..., :18].permute(1, 2, 0, 3).reshape(46, 54, -1)
     s, i = smooth_nms_topk_raw(heat8.contiguous(), 4, 4, k, 0.05, cap=cap)
     s0, i0 = smooth_nms_topk_raw_plain(heat8, 4, 4, k, 0.05)
     assert torch.equal(i, i0)
     torch.testing.assert_close(s, s0, rtol=1e-5, atol=0)
+    s1, i1 = k1_phase_reference(heat8, 4, 4, k, 0.05)
+    assert torch.equal(i, i1) and torch.equal(s, s1)
+
+
+@pytest.mark.parametrize("f", [1, 2, 3])
+def test_topk_raw_kernel_other_factors(nets, f):
+    """Factors other than 4 run the kernel's run-time loops."""
+    heat8 = nets[..., :18].permute(1, 2, 0, 3).reshape(46, 54, -1)
+    s, i = smooth_nms_topk_raw(heat8.contiguous(), f, f, 32, 0.05)
+    s1, i1 = k1_phase_reference(heat8, f, f, 32, 0.05)
+    assert torch.equal(i, i1) and torch.equal(s, s1)
+    assert torch.equal(i, smooth_nms_topk_raw_plain(heat8, f, f, 32, 0.05)[1])
+
+
+@pytest.mark.parametrize("cap", [4096, 16])
+def test_topk_raw_kernel_on_a_plateau(nets, cap):
+    """A plateau makes peaks of near-equal values: the two summation
+    orders pick different ones, so the kernel is held bit for bit
+    against its own phase arithmetic; a plane below the threshold has
+    no peak."""
+    x = torch.full((46, 54, 2), 0.5, device=nets.device)
+    x[..., 1] = 0.01
+    s, i = smooth_nms_topk_raw(x, 4, 4, 128, 0.05, cap=cap)
+    s1, i1 = k1_phase_reference(x, 4, 4, 128, 0.05)
+    assert torch.equal(i, i1) and torch.equal(s, s1)
+    assert bool((i[0] >= 0).all()) and bool((i[1] == -1).all())
 
 
 @pytest.mark.parametrize("up", [1, 4])
@@ -90,3 +120,11 @@ def test_full_res_topk_kernel_on_a_plateau(nets):
     got = smooth_nms_topk(x, 128, 0.05)
     k4_compare(got, smooth_nms_topk_plain(x, 128, 0.05))
     assert bool((got[1][0].diff() > 0).all()) and bool((got[1][1] == -1).all())
+
+
+def test_full_res_topk_kernel_other_blur_length(nets):
+    """A blur length other than 25 runs the kernel's run-time loops."""
+    x = planes_up(nets, 115, 135)
+    for kernlen in (13, 4):
+        k4_compare(smooth_nms_topk(x, 32, 0.05, kernlen=kernlen),
+                   smooth_nms_topk_plain(x, 32, 0.05, kernlen))

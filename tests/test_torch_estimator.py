@@ -138,6 +138,18 @@ def test_inference_downscales_an_864x736_image_like_jax(thin368):
                                                upsample_size=4.0))
 
 
+def test_inference_enlarges_a_300x250_image_like_jax(thin368):
+    """An image smaller than the network on both axes: the port resizes
+    it on the device as ``cv2.INTER_AREA`` does (the JAX estimator's host
+    resize), byte for byte; the same humans."""
+    jax_est, est, _ = thin368
+    img = _scenes(1, 300, 250, seed=5)[0]
+    got = est.inference(img, resize_to_default=True, upsample_size=4.0)
+    assert len(got) > 0
+    _assert_same_humans(got, jax_est.inference(img, resize_to_default=True,
+                                               upsample_size=4.0))
+
+
 def test_inference_multiscale_432x368_thin368(thin368):
     """Scales (1.0, 1.5) of a 432x368 scene: one window, then four of
     the 648x552 image, averaged on the 46x54 grid and decoded at 2.5x;

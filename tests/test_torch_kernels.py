@@ -2,6 +2,9 @@
 version (what the wrapper runs on a CPU tensor) against the Pallas TPU
 kernel it replaces, run in interpret mode on the CPU."""
 
+import ctypes
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,13 +29,21 @@ from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.ops import nms, paf
 from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.kernels.paf_score import paf_sample_scores
+from chip_smoke import k1_phase_reference
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
-    MAX_SMEM,
+    LIST_CAP,
+    TOPK_ARGTYPES,
+    TOPK_RAW_ARGTYPES,
+    MAX_K,
+    MAX_TAPS,
+    PHASE_ROUTE_FLOATS,
+    _phase_range,
     can_use_phase_kernel,
+    peak_lists,
     smooth_nms,
     smooth_nms_topk,
     smooth_nms_topk_raw,
-    topk_raw_smem_bytes,
+    smooth_nms_topk_raw_plain,
 )
 
 torch.set_num_threads(2)
@@ -122,24 +133,61 @@ def test_smooth_nms_topk_plain_vs_pallas_on_a_plateau():
     assert (i.numpy()[1] == -1).all() and (s.numpy()[1] == 0).all()
 
 
+def _route_floats(h8, w8, fy, fx, kernlen=25):
+    """The quantity the raw-grid route bounds: a plane's vertical phase
+    sums plus both phase weight tables, in floats."""
+    (dvmin, dvmax), (dhmin, dhmax) = (_phase_range(f, kernlen, kernlen // 2)
+                                      for f in (fy, fx))
+    nv, nh = dvmax - dvmin + 1, dhmax - dhmin + 1
+    return fy * h8 * (w8 + nh - 1) + fy * nv + fx * nh
+
+
+def _old_route(h8, w8, up_h, up_w, kernlen=25):
+    """The route as it stood with the one-block-per-plane raw-grid kernel:
+    integer factors 1..8 and that kernel's shared memory (2,048 keys, the
+    vertical phase sums and the weights) within 232,448 bytes."""
+    if h8 <= 0 or w8 <= 0 or up_h % h8 or up_w % w8:
+        return False
+    fy, fx = up_h // h8, up_w // w8
+    if not (1 <= fy <= 8 and 1 <= fx <= 8):
+        return False
+    return 8 * 2048 + 4 * _route_floats(h8, w8, fy, fx, kernlen) <= 232448
+
+
 @pytest.mark.parametrize("h8, w8, up_h, up_w", [
     (46, 54, 184, 216), (46, 54, 368, 432), (60, 80, 240, 320),
     (90, 160, 360, 640), (90, 160, 720, 1280), (46, 54, 115, 135),
     (46, 54, 92, 108), (135, 240, 540, 960)])
 def test_phase_kernel_route_depends_on_shapes_only(h8, w8, up_h, up_w):
-    """The raw-grid route needs an integer factor and a block that fits
-    shared memory; where the port leaves it, the JAX package leaves it
-    too or (720p at 4x) keeps it only through its larger VMEM budget."""
+    """The raw-grid route needs an integer factor and planes within its
+    size limit; where the port leaves it, the JAX package leaves it too
+    or (720p at 4x) keeps it only through its larger VMEM budget."""
     ok = can_use_phase_kernel(h8, w8, up_h, up_w)
     if ok:
         assert j_can_use_phase_kernel(h8, w8, up_h, up_w)
         fy, fx = up_h // h8, up_w // w8
-        assert topk_raw_smem_bytes(h8, w8, fy, fx, 25 // fy + 2,
-                                   25 // fx + 2, 2048) <= MAX_SMEM
+        assert _route_floats(h8, w8, fy, fx) <= PHASE_ROUTE_FLOATS
     assert ok == ((h8, w8, up_h, up_w) in {(46, 54, 184, 216),
                                            (46, 54, 368, 432),
                                            (60, 80, 240, 320),
                                            (46, 54, 92, 108)})
+
+
+@pytest.mark.parametrize("f", range(1, 9))
+def test_phase_route_equals_the_old_shared_memory_rule(f):
+    """The explicit size limit routes every shape as the old kernel's
+    shared-memory budget did: raw grids of 1..160 x 1..240 at factor f
+    on both axes and (f, 3) and (3, f), and ratios that are no
+    integer."""
+    for h8 in (1, 5, 23, 46, 60, 90, 101, 135, 160):
+        for w8 in (1, 7, 54, 80, 123, 160, 199, 240):
+            for up_h, up_w in ((f * h8, f * w8), (f * h8, 3 * w8),
+                               (3 * h8, f * w8), (f * h8 + 1, f * w8),
+                               (f * h8, f * w8 - 1)):
+                for kernlen in (25, 13):
+                    assert (can_use_phase_kernel(h8, w8, up_h, up_w, kernlen)
+                            == _old_route(h8, w8, up_h, up_w, kernlen))
+    assert not can_use_phase_kernel(46, 54, 9 * 46, 9 * 54)
 
 
 @pytest.mark.parametrize("shape", [(46, 54, 19), (184, 216, 19)])
@@ -247,9 +295,67 @@ def test_wrappers_reject_bad_inputs():
 
 
 def test_topk_smem_fits_hopper_at_main_path_sizes():
-    # 46x54 raw planes at 4x and 8x: keys + vertical phase sums + weights
-    assert topk_raw_smem_bytes(46, 54, 4, 4, 7, 7, 2048) < 100 * 1024
-    assert topk_raw_smem_bytes(46, 54, 8, 8, 5, 5, 2048) < 227 * 1024
+    """46x54 raw planes at 4x (the main path) and at 8x stay on the
+    raw-grid route: within its size limit, as they fit the old kernel's
+    shared memory."""
+    assert _route_floats(46, 54, 4, 4) * 4 < 100 * 1024
+    assert _route_floats(46, 54, 8, 8) <= PHASE_ROUTE_FLOATS
+    assert can_use_phase_kernel(46, 54, 184, 216)
+    assert can_use_phase_kernel(46, 54, 368, 432)
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda x: smooth_nms_topk_raw(x, 4, 4, MAX_K + 1, 0.05), "k_top"),
+    (lambda x: smooth_nms_topk_raw(x, 4, 4, 0, 0.05), "k_top"),
+    (lambda x: smooth_nms_topk_raw(x, 4, 4, 32, 0.05, cap=0), "cap"),
+    (lambda x: smooth_nms_topk_raw(x, 4, 4, 32, 0.05, cap=LIST_CAP + 1),
+     "cap"),
+    (lambda x: smooth_nms_topk_raw(x, 4, 0, 32, 0.05), "fy and fx"),
+    (lambda x: smooth_nms_topk_raw(x, 4, 4, 32, 0.05, kernlen=MAX_TAPS + 1),
+     "kernlen"),
+    (lambda x: smooth_nms_topk(x, 32, 0.05, kernlen=0), "kernlen"),
+    (lambda x: smooth_nms_topk(x, 32, 0.05, cap=LIST_CAP + 1), "cap"),
+    (lambda x: smooth_nms_topk(x, 0, 0.05), "k_top")])
+def test_topk_wrappers_check_their_limits_on_every_device(call, match):
+    """The wrappers check K (1..1024), the shared-memory list length
+    (1..4096; K4 at least K) and the blur length (1..64) before choosing
+    a device, so the CPU raises where the card would."""
+    with pytest.raises(ValueError, match=match):
+        call(torch.zeros(6, 7, 2))
+
+
+def test_topk_raw_takes_a_cap_below_k():
+    """K1's ``cap`` only says how long a list is sorted whole: below K
+    (the radix path on the card) the plain version answers as usual."""
+    x = _t(_heat8(3, 46, 54, 2, "noise"))
+    for cap in (1, 8, LIST_CAP):
+        s, i = smooth_nms_topk_raw(x, 4, 4, 32, 0.05, cap=cap)
+        assert (i.numpy() >= 0).all()
+
+
+@pytest.mark.parametrize("c, plane", [(18, 184 * 216), (144, 115 * 135),
+                                      (2, 1)])
+def test_peak_lists_sized_for_the_worst_case(c, plane):
+    """Every value of every plane may be a peak (a plateau): the list
+    holds c * plane keys of 8 bytes, and the counts start at 0."""
+    lists, counts = peak_lists(c, plane, "cpu")
+    assert lists.dtype == torch.int64 and lists.numel() == c * plane
+    assert counts.dtype == torch.int32 and counts.tolist() == [0] * c
+
+
+@pytest.mark.parametrize("f, kind", [(1, "scene"), (2, "scene"),
+                                     (3, "scene"), (4, "scene"),
+                                     (2, "noise"), (4, "noise")])
+def test_k1_phase_reference_vs_plain(f, kind):
+    """The raw-grid kernel's own arithmetic in PyTorch (the card tests
+    hold the kernel to it bit for bit) selects the plain version's peaks:
+    indices exact, scores rtol 1e-5."""
+    heat8 = _t(_heat8(10 * f, 46, 54, 4, kind))
+    s, i = k1_phase_reference(heat8, f, f, 32, 0.05)
+    s0, i0 = smooth_nms_topk_raw_plain(heat8, f, f, 32, 0.05)
+    np.testing.assert_array_equal(i.numpy(), i0.numpy())
+    np.testing.assert_allclose(s.numpy(), s0.numpy(), rtol=1e-5, atol=0)
+    assert (i.numpy() >= 0).sum() > 0
 
 
 def test_build_dir_hashes_sources_and_finds_all_kernels():
@@ -257,3 +363,30 @@ def test_build_dir_hashes_sources_and_finds_all_kernels():
     assert d.startswith(build.BUILD_ROOT) and d == build.build_dir()
     assert {n[:-3] for n in build._sources() if n.endswith(".cu")} == {
         "smooth_nms", "smooth_nms_topk_raw", "smooth_nms_topk", "paf_score"}
+
+
+def test_build_dir_hashes_the_shared_header():
+    """``csrc/peak_select.cuh`` is shared by the two top-K sources: it is
+    hashed into the build directory's name but not compiled alone."""
+    names = build._sources()
+    assert "peak_select.cuh" in names
+    for stem in ("smooth_nms_topk", "smooth_nms_topk_raw"):
+        with open(os.path.join(build.CSRC, stem + ".cu")) as f:
+            assert '#include "peak_select.cuh"' in f.read()
+
+
+@pytest.mark.parametrize("stem, symbol, argtypes", [
+    ("smooth_nms_topk_raw", "smooth_nms_topk_raw_launch", TOPK_RAW_ARGTYPES),
+    ("smooth_nms_topk", "smooth_nms_topk_launch", TOPK_ARGTYPES)])
+def test_launcher_argtypes_match_the_c_signature(stem, symbol, argtypes):
+    """ctypes passes what the wrapper declares: the declared types must
+    follow the C launch function's parameters one for one (pointers,
+    ints, the float threshold), or the card call fails."""
+    with open(os.path.join(build.CSRC, stem + ".cu")) as f:
+        src = f.read()
+    head = src[src.index(f'extern "C" int {symbol}('):]
+    params = head[head.index("(") + 1:head.index(")")].split(",")
+    kinds = [ctypes.c_void_p if "*" in p else
+             ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
+             for p in params]
+    assert kinds == list(argtypes)

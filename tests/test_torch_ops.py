@@ -88,6 +88,44 @@ def test_downscale_area_matches_cv2_inter_area(h, w, max_share):
         preprocess.normalize(_t(got)).numpy())
 
 
+@pytest.mark.parametrize("h, w, oh, ow", [
+    (60, 70, 80, 96), (300, 250, 368, 432), (37, 41, 368, 432),
+    (367, 431, 368, 432), (1, 1, 5, 3),           # enlarging
+    (500, 300, 368, 432), (200, 600, 368, 432),   # mixed
+    (368, 300, 368, 432), (100, 432, 368, 432),   # one axis kept
+    (123, 77, 200, 91), (7, 5, 13, 11)])          # odd sizes
+def test_resize_area_u8_matches_cv2_inter_area(h, w, oh, ow):
+    """Where the image does not shrink on both axes, cv2.INTER_AREA is
+    cv2's linear rule with area weights in 11-bit fixed point: the port
+    equals it byte for byte, also through ``prepare``."""
+    img = _photo(h + w, h, w)
+    want = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_AREA)
+    got = resize.resize_area_u8(_t(img), oh, ow).numpy()
+    assert got.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        preprocess.prepare(_t(img[None]), oh, ow).numpy()[0],
+        preprocess.normalize(_t(want)).numpy())
+
+
+def test_resize_area_u8_matches_cv2_on_random_shapes():
+    """200 random shapes up to 120x160 that enlarge on at least one axis,
+    with 1, 3 or 4 channels and a batch axis: byte for byte."""
+    rng = np.random.default_rng(11)
+    n = 0
+    while n < 200:
+        h, w, oh, ow = (int(v) for v in rng.integers(1, (120, 120, 160, 160)))
+        if oh <= h and ow <= w:
+            continue
+        c = int(rng.choice([1, 3, 4]))
+        imgs = rng.integers(0, 256, (2, h, w, c), np.uint8)
+        got = resize.resize_area_u8(_t(imgs), oh, ow).numpy()
+        for img, g in zip(imgs, got):
+            want = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_AREA)
+            np.testing.assert_array_equal(g, want.reshape(oh, ow, c))
+        n += 1
+
+
 def test_gauss_kernel_and_smooth():
     np.testing.assert_array_equal(gaussian.gauss_kernel_1d(25, 3.0),
                                   j_gaussian.gauss_kernel_1d(25, 3.0))

@@ -12,7 +12,8 @@ CUDA kernel for a CUDA tensor and its plain version for a CPU tensor:
   scoring, greedy connections, assembly, the batch x part planes
   flattened into one kernel call each. Shapes alone pick the kernels:
   the raw-grid top-K (:func:`smooth_nms_topk_raw`) where the upsample is
-  an integer replication whose block fits (``can_use_phase_kernel``),
+  an integer replication within the route's size limit
+  (``can_use_phase_kernel``),
   else the area-upsampled heat through :func:`smooth_nms_topk`; the
   raw-grid PAF sampler (:func:`score_candidates_raw_batch`) at any
   integer ratio, else the gather scorer on the area-upsampled PAF;

@@ -16,15 +16,18 @@ with its plain PyTorch version beside it:
 * :func:`smooth_nms_topk` (``csrc/smooth_nms_topk.cu``) replaces
   ``smooth_nms_topk_pallas``: the same blur, NMS, threshold and top-K on
   an already-upsampled (H, W, C) map, for ratios that are not an integer
-  replication and for planes whose raw-grid block does not fit.
+  replication and for planes beyond the raw-grid route's size limit.
 
-The route between the two top-K kernels depends on shapes only
-(:func:`can_use_phase_kernel`): the raw-grid kernel needs an integer
-factor of 1..8 and a block within Hopper's shared memory. The second
-condition stands for the JAX package's VMEM budget but is tighter: a
-1280x720 frame in 432x368 windows merges to a 90x160 grid, which the
-JAX package decodes at 4x through its raw-grid kernel and the port
-through :func:`smooth_nms_topk` (the two kernels select the same peaks).
+The two top-K kernels share one design (``csrc/peak_select.cuh``): a
+tiled peaks pass appends each plane's peaks to a list in device memory
+sized for the worst case, and a select kernel cuts each list to its top
+K. The route between them depends on shapes only
+(:func:`can_use_phase_kernel`): the raw-grid kernel takes an integer
+factor of 1..8 and planes within :data:`PHASE_ROUTE_FLOATS`. That limit
+stands for the JAX package's VMEM budget and is tighter: a 1280x720
+frame in 432x368 windows merges to a 90x160 grid, which the JAX package
+decodes at 4x through its raw-grid kernel and the port through
+:func:`smooth_nms_topk` (the two kernels select the same peaks).
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain
 version for a CPU tensor; anything else raises. Each wrapper counts its
@@ -43,19 +46,26 @@ from tfpose_tpu_torch.ops.gaussian import gauss_kernel_1d, smooth
 from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.nms import max3x3, nms, stable_topk
 
-# Candidate-list capacity (peaks per plane) of the raw-grid top-K kernel's
-# shared memory; a plane with more peaks falls back to selection by rounds.
-TOPK_CAP = 2048
-# Peaks per plane that the full-resolution top-K kernel sorts in shared
-# memory; a plane with more is cut to its top K by a radix select first.
+# Peaks per plane that the top-K kernels sort in shared memory; a plane
+# with more is cut to its top K by a radix select first (same result).
 LIST_CAP = 4096
 # Result slots per plane, as in the JAX kernels' (8, 128) result tile.
 MAX_K = 1024
-# Largest dynamic shared memory a block may use on Hopper (bytes).
-MAX_SMEM = 232448
+# Longest blur the top-K kernels take (taps are a kernel parameter).
+MAX_TAPS = 64
+# The raw-grid route's size limit: a plane's vertical phase sums
+# (fy*h8 rows of w8 + nh - 1 floats) and both phase weight tables within
+# this many floats. It is the shared-memory budget of the earlier
+# one-block-per-plane kernel ((232,448 B - 2,048 keys of 8 B) / 4 B), kept
+# as a number so that every shape keeps its route; the tiled kernel
+# itself needs no such limit.
+PHASE_ROUTE_FLOATS = 54016
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
+# argument types of the top-K kernels' C launch functions, in order
+TOPK_RAW_ARGTYPES = [_ptr] * 7 + [_int] * 11 + [ctypes.c_float, _int, _ptr]
+TOPK_ARGTYPES = [_ptr] * 6 + [_int] * 5 + [ctypes.c_float, _int, _ptr]
 
 
 def _check_input(x: torch.Tensor, ndim: int, name: str) -> None:
@@ -143,9 +153,9 @@ def _phase_range(f: int, nk: int, p: int):
 def can_use_phase_kernel(h8: int, w8: int, up_h: int, up_w: int,
                          kernlen: int = 25) -> bool:
     """The raw-grid kernel is exact iff the upsample is a pure integer
-    replication; factors stay within 1..8 as in the JAX package, and one
-    plane's block must fit a Hopper block's shared memory (the port's
-    counterpart of the JAX package's VMEM budget)."""
+    replication; factors stay within 1..8 as in the JAX package, and the
+    plane stays within :data:`PHASE_ROUTE_FLOATS` (the port's counterpart
+    of the JAX package's VMEM budget)."""
     if h8 <= 0 or w8 <= 0 or up_h % h8 or up_w % w8:
         return False
     fy, fx = up_h // h8, up_w // w8
@@ -153,9 +163,8 @@ def can_use_phase_kernel(h8: int, w8: int, up_h: int, up_w: int,
         return False
     (dvmin, dvmax), (dhmin, dhmax) = (_phase_range(f, kernlen, kernlen // 2)
                                       for f in (fy, fx))
-    smem = topk_raw_smem_bytes(h8, w8, fy, fx, dvmax - dvmin + 1,
-                               dhmax - dhmin + 1, TOPK_CAP)
-    return smem <= MAX_SMEM
+    nv, nh = dvmax - dvmin + 1, dhmax - dhmin + 1
+    return fy * h8 * (w8 + nh - 1) + fy * nv + fx * nh <= PHASE_ROUTE_FLOATS
 
 
 def smooth_nms_topk_raw_plain(heat8: torch.Tensor, fy: int, fx: int,
@@ -169,58 +178,69 @@ def smooth_nms_topk_raw_plain(heat8: torch.Tensor, fy: int, fx: int,
 
 @functools.lru_cache(maxsize=32)
 def _phase_tables(fy: int, fx: int, kernlen: int, nsig: float, device: str):
+    """(wv, dvmin, wh, dhmin, zero_taps): both phase weight tables on
+    ``device``, and whether a tap t > 0 of either weighs 0 (the kernel
+    skips those, as the JAX kernel does)."""
     p = kernlen // 2
     kern = gauss_kernel_1d(kernlen, nsig)
     wv, dvmin, _ = _phase_weights(kern, fy, p)
     wh, dhmin, _ = _phase_weights(kern, fx, p)
+    zero_taps = bool((wv[:, 1:] == 0).any() or (wh[:, 1:] == 0).any())
     return (torch.from_numpy(wv).to(device), dvmin,
-            torch.from_numpy(wh).to(device), dhmin)
+            torch.from_numpy(wh).to(device), dhmin, zero_taps)
 
 
-def topk_raw_smem_bytes(h8: int, w8: int, fy: int, fx: int, nv: int,
-                        nh: int, cap: int) -> int:
-    """Dynamic shared memory of one block of the top-K kernel: the
-    candidate keys, the vertical phase sums and the two weight tables."""
-    return (8 * cap + 4 * fy * h8 * (w8 + nh - 1)
-            + 4 * (fy * nv + fx * nh))
+def _check_topk(k_top: int, cap: int, kernlen: int, cap_min: int) -> None:
+    if not 1 <= k_top <= MAX_K:
+        raise ValueError(f"k_top must be in 1..{MAX_K}, got {k_top}")
+    if not cap_min <= cap <= LIST_CAP:
+        raise ValueError(f"cap must be in {cap_min}..{LIST_CAP}, got {cap}")
+    if not 1 <= kernlen <= MAX_TAPS:
+        raise ValueError(f"kernlen must be in 1..{MAX_TAPS}, got {kernlen}")
+
+
+def peak_lists(c: int, plane: int, device):
+    """Scratch of the two top-K kernels: each plane's list of peak keys,
+    sized for the worst case (every value of the plane a peak, as on a
+    plateau), and the per-plane counts, zeroed."""
+    return (torch.empty(c * plane, dtype=torch.int64, device=device),
+            torch.zeros(c, dtype=torch.int32, device=device))
 
 
 def smooth_nms_topk_raw(heat8: torch.Tensor, fy: int, fx: int, k_top: int,
                         thresh: float, kernlen: int = 25, nsig: float = 3.0,
-                        cap: int = TOPK_CAP):
+                        cap: int = LIST_CAP):
     """(h8, w8, C) raw fp32 planes -> (scores (C, K) f32, flat idx (C, K)
     int32) in upsampled (fy*h8, fx*w8) coordinates.
 
-    ``cap`` is the kernel's per-plane candidate-list capacity; a plane
-    with more peaks is selected by rounds instead (same result, slower).
+    ``cap`` (1 .. ``LIST_CAP``) is how many peaks a plane may have for
+    the kernel to sort them all in shared memory; a plane with more than
+    ``max(cap, k_top)`` is first cut to K by a radix select (same result).
     The CUDA kernel reads planes channel-first, so the wrapper
     transposes the (h8, w8, C) input once (0.18 MB at B=1).
     """
     _check_input(heat8, 3, "smooth_nms_topk_raw")
-    if min(fy, fx, k_top, cap) < 1:
-        raise ValueError("fy, fx, k_top and cap must be positive")
+    if min(fy, fx) < 1:
+        raise ValueError("fy and fx must be positive")
+    _check_topk(k_top, cap, kernlen, 1)
     if heat8.device.type == "cpu":
         return smooth_nms_topk_raw_plain(heat8, fy, fx, k_top, thresh,
                                          kernlen, nsig)
     h8, w8, c = heat8.shape
-    wv, dvmin, wh, dhmin = _phase_tables(fy, fx, kernlen, float(nsig),
-                                         str(heat8.device))
+    wv, dvmin, wh, dhmin, zero_taps = _phase_tables(
+        fy, fx, kernlen, float(nsig), str(heat8.device))
     nv, nh = wv.shape[1], wh.shape[1]
-    smem = topk_raw_smem_bytes(h8, w8, fy, fx, nv, nh, cap)
-    if smem > MAX_SMEM:
-        raise ValueError(f"smooth_nms_topk_raw: planes {h8}x{w8} at "
-                         f"factors {fy}x{fx} need {smem} B of shared memory")
     planes = heat8.permute(2, 0, 1).contiguous()
+    lists, counts = peak_lists(c, fy * h8 * fx * w8, heat8.device)
     scores = torch.empty((c, k_top), dtype=torch.float32,
                          device=heat8.device)
     idx = torch.empty((c, k_top), dtype=torch.int32, device=heat8.device)
-    fn = build.launcher(
-        "smooth_nms_topk_raw", "smooth_nms_topk_raw_launch",
-        [_ptr] * 5 + [_int] * 11 + [ctypes.c_float, _int, _ptr])
+    fn = build.launcher("smooth_nms_topk_raw", "smooth_nms_topk_raw_launch",
+                        TOPK_RAW_ARGTYPES)
     status = fn(planes.data_ptr(), wv.data_ptr(), wh.data_ptr(),
-                scores.data_ptr(), idx.data_ptr(), c, h8, w8, fy, fx,
-                nv, nh, dvmin, dhmin, smem, k_top, float(thresh), cap,
-                _stream(heat8))
+                lists.data_ptr(), counts.data_ptr(), scores.data_ptr(),
+                idx.data_ptr(), c, h8, w8, fy, fx, nv, nh, dvmin, dhmin,
+                int(zero_taps), k_top, float(thresh), cap, _stream(heat8))
     build.check("smooth_nms_topk_raw", status, "smooth_nms_topk_raw")
     smooth_nms_topk_raw.launches += 1
     return scores, idx
@@ -253,12 +273,11 @@ def blur_in_tap_order(planes: torch.Tensor, kernlen: int = 25,
     return sm
 
 
-def smooth_nms_topk_plain(heat: torch.Tensor, k_top: int, thresh: float,
-                          kernlen: int = 25, nsig: float = 3.0):
-    """The plain version of :func:`smooth_nms_topk`: blur in tap order,
-    3x3 max, threshold, stable top-K."""
-    c = heat.shape[2]
-    sm = blur_in_tap_order(heat.permute(2, 0, 1), kernlen, nsig)
+def topk_of_smoothed(sm: torch.Tensor, k_top: int, thresh: float):
+    """(C, H, W) smoothed planes -> the top-K peaks per plane: values >=
+    their 3x3 max (-inf outside) and > thresh, by score descending, ties
+    to the lower flat index; empty slots hold 0 and -1."""
+    c = sm.shape[0]
     neg = torch.tensor(-float("inf"), device=sm.device)
     peaks = torch.where((sm >= max3x3(sm)) & (sm > thresh), sm, neg)
     flat = peaks.reshape(c, -1)
@@ -268,6 +287,14 @@ def smooth_nms_topk_plain(heat: torch.Tensor, k_top: int, thresh: float,
     found = vals > neg
     return (torch.where(found, vals, torch.zeros_like(vals)),
             torch.where(found, order, torch.full_like(order, -1)).int())
+
+
+def smooth_nms_topk_plain(heat: torch.Tensor, k_top: int, thresh: float,
+                          kernlen: int = 25, nsig: float = 3.0):
+    """The plain version of :func:`smooth_nms_topk`: blur in tap order,
+    3x3 max, threshold, stable top-K."""
+    sm = blur_in_tap_order(heat.permute(2, 0, 1), kernlen, nsig)
+    return topk_of_smoothed(sm, k_top, thresh)
 
 
 def smooth_nms_topk(heat: torch.Tensor, k_top: int, thresh: float,
@@ -284,22 +311,17 @@ def smooth_nms_topk(heat: torch.Tensor, k_top: int, thresh: float,
     tensor is passed through without a copy.
     """
     _check_input(heat, 3, "smooth_nms_topk")
-    if not 1 <= k_top <= MAX_K:
-        raise ValueError(f"k_top must be in 1..{MAX_K}, got {k_top}")
-    if not k_top <= cap <= LIST_CAP:
-        raise ValueError(f"cap must be in k_top..{LIST_CAP}, got {cap}")
+    _check_topk(k_top, cap, kernlen, k_top)
     if heat.device.type == "cpu":
         return smooth_nms_topk_plain(heat, k_top, thresh, kernlen, nsig)
     h, w, c = heat.shape
     planes = heat.permute(2, 0, 1).contiguous()
-    taps = _taps(kernlen, float(nsig), str(heat.device))
-    lists = torch.empty(c * h * w, dtype=torch.int64, device=heat.device)
-    counts = torch.zeros(c, dtype=torch.int32, device=heat.device)
+    taps = _taps(kernlen, float(nsig), "cpu")  # copied into the launch
+    lists, counts = peak_lists(c, h * w, heat.device)
     scores = torch.empty((c, k_top), dtype=torch.float32, device=heat.device)
     idx = torch.empty((c, k_top), dtype=torch.int32, device=heat.device)
     fn = build.launcher("smooth_nms_topk", "smooth_nms_topk_launch",
-                        [_ptr] * 6 + [_int] * 5
-                        + [ctypes.c_float, _int, _ptr])
+                        TOPK_ARGTYPES)
     status = fn(planes.data_ptr(), taps.data_ptr(), lists.data_ptr(),
                 counts.data_ptr(), scores.data_ptr(), idx.data_ptr(), c, h,
                 w, kernlen, k_top, float(thresh), cap, _stream(heat))

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from tfpose_tpu_torch.ops.resize import resize_area, resize_bilinear
+from tfpose_tpu_torch.ops.resize import resize_area, resize_area_u8
 
 
 def normalize(img: torch.Tensor) -> torch.Tensor:
@@ -27,14 +27,14 @@ def downscale_area(img: torch.Tensor, target_h: int,
 
 def prepare(img: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     """uint8 (..., H, W, 3) -> normalized float (..., target_h, target_w, 3)
-    on the tensor's device. An image at least as large as the target on
-    both axes is area-downscaled to uint8 (:func:`downscale_area`), as
-    the JAX estimator does; one that is smaller on an axis is resized
-    bilinearly after normalizing (``cv2.INTER_AREA`` is not an area
-    average when it enlarges, ROADMAP Queue C)."""
+    on the tensor's device, resized to uint8 first as the JAX estimator
+    does on the host with ``cv2.INTER_AREA``: an image at least as large
+    as the target on both axes by area averaging (:func:`downscale_area`),
+    one that is smaller on an axis by cv2's linear rule with area weights
+    (:func:`resize_area_u8`, byte for byte)."""
     h, w = img.shape[-3], img.shape[-2]
     if (h, w) == (target_h, target_w):
         return normalize(img)
     if h >= target_h and w >= target_w:
         return normalize(downscale_area(img, target_h, target_w))
-    return resize_bilinear(normalize(img), target_h, target_w)
+    return normalize(resize_area_u8(img, target_h, target_w))
