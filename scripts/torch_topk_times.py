@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's two top-K kernels on one CUDA card, at the shapes of
-the paths that run them, and optionally save or compare their outputs.
+"""Time the port's decode kernels on one CUDA card, at the shapes of the
+paths that run them, and optionally save or compare their outputs.
 
     python3 scripts/torch_topk_times.py [--root DIR] [--label NAME]
         [--save OUT.npz] [--compare REF.npz] [--json OUT.json]
@@ -13,16 +13,24 @@ same card in turns. Cases, each on seeded rendered scenes:
   (46, 54, 144) (B=8), K=32: the ``inference_batch`` path;
 * K4 ``smooth_nms_topk`` on (360, 640, 18) (a 1280x720 frame's merged
   map at 4x, the windowed and multi-scale paths) and (115, 135, 144)
-  (B=8 at 2.5x), K=32.
+  (B=8 at 2.5x), K=32;
+* K2 ``smooth_nms`` on (184, 216, 19) (the ``inference`` path at 4x);
+* K3 through the tree's raw-grid candidate scoring call,
+  ``ops/kernels/paf_score.py:score_candidates_raw`` or, in a tree without
+  it, ``ops/paf.py:score_candidates_raw_batch`` (the batch, windowed and
+  multi-scale paths' scoring, whatever kernels and glue the tree runs for
+  it) at B = 1 and 8 on 46x54 raw planes at 4x and on a 1280x720 frame's
+  merged 90x160 grid at 4x, K=32.
 
-For each: the median and p90 ms per call through the wrapper by CUDA
-events, the device ms per launch of the wrapper's own CUDA kernels from
-``torch.profiler`` (everything but PyTorch's copies and fills), and the
-least time the card could take (bytes over 3.35 TB/s or operations over
-67 TFLOP/s fp32, whichever is larger). ``--save`` writes every output
-of a fixed corpus (the cases above at K = 32 and 128, noise, a plateau)
-to an ``.npz``; ``--compare`` checks them bit for bit against such a
-file. One JSON line per case, then a summary line.
+For each: the median and p90 ms per call by CUDA events, and from
+``torch.profiler`` the device ms per launch of the tree's own CUDA
+kernels (everything but PyTorch's kernels, copies and fills), the device
+ms and the number of all CUDA kernels per call, and the least time the
+card could take (bytes over 3.35 TB/s or operations over 67 TFLOP/s
+fp32, whichever is larger). ``--save`` writes every output of a fixed
+corpus (the cases above at K = 32 and 128, noise, plateaus, the warm-up
+maps) to an ``.npz``; ``--compare`` checks them bit for bit against such
+a file. One JSON line per case, then a summary line.
 """
 
 from __future__ import annotations
@@ -56,10 +64,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_topk_times: no CUDA card available", file=sys.stderr)
         return 1
-    from tfpose_tpu_torch.ops import resize
+    from tfpose_tpu_torch.core.config import DecodeParams
+    from tfpose_tpu_torch.core.topology import pairs_array
+    from tfpose_tpu_torch.ops import nms, paf, resize
     from tfpose_tpu_torch.ops.kernels import build
     from tfpose_tpu_torch.ops.kernels.smooth_nms import (
-        _phase_tables, smooth_nms_topk, smooth_nms_topk_raw)
+        _phase_tables, smooth_nms, smooth_nms_topk, smooth_nms_topk_raw)
     from tfpose_tpu_torch.utils import synthetic
 
     smi = subprocess.run(
@@ -68,7 +78,8 @@ def main() -> int:
         timeout=10, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     build.build_all()
-    for stem in ("smooth_nms_topk_raw", "smooth_nms_topk"):
+    for stem in ("smooth_nms_topk_raw", "smooth_nms_topk", "smooth_nms",
+                 "paf_score"):
         for line in build.build_log.get(stem, "").splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {stem}: {line.strip()}", flush=True)
@@ -103,8 +114,62 @@ def main() -> int:
         return (x.numel() * 4 + x.shape[2] * 32 * 8,
                 x.numel() * (2 * (2 * 25 - 1) + 9))
 
+    def k2_cost(x):
+        return 2 * x.numel() * 4, x.numel() * (2 * (2 * 25 - 1) + 9)
+
+    params = DecodeParams()
+    pair_parts = torch.as_tensor(pairs_array(), dtype=torch.long, device=dev)
+
+    def peaks(s, i, b, up_w):
+        s, i = s.reshape(b, 18, -1), i.reshape(b, 18, -1).clamp(min=0)
+        return nms.Peaks(x=i % up_w, y=i // up_w, score=s, valid=s > 0.05)
+
+    steps = (torch.arange(params.step_paf, dtype=torch.float32)
+             / params.step_paf).to(dev)
+
+    def k3_cost(pk, paf8, up_h, up_w):
+        """Bytes: the peaks, 5 B of result per candidate, and each PAF
+        cell (both channels of its pair) that a live candidate (outside the
+        row skip) samples, once; a dead candidate reads no PAF. Operations:
+        about 16 per candidate and 13 per sample of a live one."""
+        b, _, k = pk.x.shape
+        h8, w8 = paf8.shape[1:3]
+        va = pk.valid[:, pair_parts[:, 0]].sum(-1)
+        nrows = torch.where(pk.valid[:, pair_parts[:, 1]].any(-1),
+                            (va * k + 127) // 128, 0)
+        rows = torch.arange(k * k, device=dev).reshape(k, k) // 128
+        live = rows < nrows[..., None, None]                # (B, 19, K, K)
+        ax, ay = (t[:, pair_parts[:, 0], :, None, None].float()
+                  for t in (pk.x, pk.y))
+        bx, by = (t[:, pair_parts[:, 1], None, :, None].float()
+                  for t in (pk.x, pk.y))
+        iy = torch.floor(ay + (by - ay) * steps + 0.5).clamp(0, up_h - 1)
+        ix = torch.floor(ax + (bx - ax) * steps + 0.5).clamp(0, up_w - 1)
+        plane = torch.arange(b * 19, device=dev).reshape(b, 19, 1, 1, 1)
+        cell = ((plane * h8 + iy.long() // (up_h // h8)) * w8
+                + ix.long() // (up_w // w8))
+        cells = torch.unique(cell[live]).numel()
+        n = b * 19 * k * k
+        return (cells * 8 + pk.x.numel() * 9 + n * 5,
+                16 * n + (13 * params.step_paf + 1) * int(live.sum()))
+
+    try:
+        from tfpose_tpu_torch.ops.kernels.paf_score import (
+            score_candidates_raw as score_raw)
+    except ImportError:  # a tree that scores through its ops/paf.py glue
+        score_raw = paf.score_candidates_raw_batch
+
+    def k3(pk, paf8, up_h, up_w):
+        return lambda: score_raw(pk, paf8, up_h, up_w, params)
+
     x1, x8 = heat8(1), heat8(8)
     x720, x25 = planes_up(net720[None], 360, 640), planes_up(nets, 115, 135)
+    heat_up = resize.resize_area(nets[0, ..., :19], 184, 216).contiguous()
+    pk1 = peaks(*smooth_nms_topk_raw(x1, 4, 4, 32, 0.05), 1, 216)
+    pk8 = peaks(*smooth_nms_topk_raw(x8, 4, 4, 32, 0.05), 8, 216)
+    pk720 = peaks(*smooth_nms_topk(x720, 32, 0.05), 1, 640)
+    paf1, paf8, paf720 = (nets[:1, ..., 19:], nets[..., 19:],
+                          net720[None, ..., 19:])
     cases = [
         ("smooth_nms_topk_raw", "B=1 (46, 54, 18) 4x K=32",
          lambda: smooth_nms_topk_raw(x1, 4, 4, 32, 0.05), k1_cost(x1)),
@@ -114,6 +179,14 @@ def main() -> int:
          lambda: smooth_nms_topk(x720, 32, 0.05), k4_cost(x720)),
         ("smooth_nms_topk", "(115, 135, 144) K=32",
          lambda: smooth_nms_topk(x25, 32, 0.05), k4_cost(x25)),
+        ("smooth_nms", "(184, 216, 19)", lambda: smooth_nms(heat_up),
+         k2_cost(heat_up)),
+        ("score_candidates_raw", "B=1 (46, 54) 4x K=32",
+         k3(pk1, paf1, 184, 216), k3_cost(pk1, paf1, 184, 216)),
+        ("score_candidates_raw", "B=8 (46, 54) 4x K=32",
+         k3(pk8, paf8, 184, 216), k3_cost(pk8, paf8, 184, 216)),
+        ("score_candidates_raw", "windowed (90, 160) 4x K=32",
+         k3(pk720, paf720, 360, 640), k3_cost(pk720, paf720, 360, 640)),
     ]
 
     def events(fn, reps=30, inner=10):
@@ -132,34 +205,47 @@ def main() -> int:
             per.append(a.elapsed_time(b) / inner)
         return float(np.median(per)), float(np.percentile(per, 90))
 
-    def device(fn, n=20):
+    def device(fn, n=20, tries=5):
+        """Device time of ``n`` calls; the profile is taken again (up to
+        ``tries`` times) when it lost kernel records, which shows as no
+        kernel or a count that is no whole multiple of ``n``."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        rows = {}
+        for _ in range(tries):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+            count = sum(e.count for e in prof.key_averages()
+                        if e.device_type == DeviceType.CUDA)
+            if count and count % n == 0:
+                break
+        rows, all_ms, all_n = {}, 0.0, 0
         for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA or "at::native" in e.key \
-                    or e.key.startswith(("Memcpy", "Memset")):
+            if e.device_type != DeviceType.CUDA:
                 continue
             us = getattr(e, "self_device_time_total", None)
             if us is None:
                 us = e.self_cuda_time_total
+            all_ms += us / 1e3 / n
+            all_n += e.count
+            if "at::native" in e.key or e.key.startswith(("Memcpy", "Memset")):
+                continue
             key = e.key.replace("(anonymous namespace)::", "")
             rows[key.split("(")[0].split("::")[-1]] = us / 1e3 / n
-        return sum(rows.values()), rows
+        return sum(rows.values()), rows, all_ms, all_n / n
 
     out = []
     for name, what, fn, (nbytes, ops) in cases:
         med, p90 = events(fn)
-        dev_ms, parts = device(fn)
+        dev_ms, parts, all_ms, per_call = device(fn)
         t_b, t_f = nbytes / H100_BYTES_PER_S * 1e3, ops / H100_FP32_FLOPS * 1e3
         row = {"label": args.label, "kernel": name, "case": what,
                "event_ms_median": med, "event_ms_p90": p90,
                "device_ms_per_launch": dev_ms, "device_parts": parts,
+               "device_ms_all_kernels": all_ms,
+               "cuda_kernels_per_call": per_call,
                "bound_ms": max(t_b, t_f),
                "bound_by": "bytes" if t_b >= t_f else "operations",
                "bytes": nbytes, "operations": ops, "card": smi}
@@ -181,10 +267,21 @@ def main() -> int:
         for tag, x in (("720", x720), ("25", x25), ("noise720", noise720),
                        ("plateau", plateau)):
             corpus[f"k4_{tag}_k{k}"] = smooth_nms_topk(x, k, 0.05)
+        for b in (1, 8):
+            pk = peaks(*smooth_nms_topk_raw(heat8(b), 4, 4, k, 0.05), b, 216)
+            corpus[f"k3_b{b}_k{k}"] = score_raw(
+                pk, nets[:b, ..., 19:], 184, 216, params)
+        pk = peaks(*smooth_nms_topk(x720, k, 0.05), 1, 640)
+        corpus[f"k3_720_k{k}"] = score_raw(
+            pk, paf720, 360, 640, params)
+    for shape in ((184, 216), (115, 135), (46, 54), (22, 26), (10, 12)):
+        x = resize.resize_area(nets[0, ..., :19], *shape).contiguous()
+        corpus[f"k2_{shape[0]}x{shape[1]}"] = (smooth_nms(x),)
+    corpus["k2_plateau"] = (smooth_nms(plateau.contiguous()),)
     arrays = {}
-    for key, (s, i) in corpus.items():
-        arrays[key + "_s"] = s.cpu().numpy()
-        arrays[key + "_i"] = i.cpu().numpy()
+    for key, outs in corpus.items():
+        for n_out, t in enumerate(outs):
+            arrays[f"{key}_{n_out}"] = t.cpu().numpy()
     if args.save:
         np.savez(args.save, **arrays)
     same = None

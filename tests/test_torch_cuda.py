@@ -10,12 +10,20 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import k1_phase_reference, k2_compare, k4_compare, planes_up
+from chip_smoke import (
+    k1_phase_reference,
+    k2_compare,
+    k3_compare,
+    k4_compare,
+    peaks_of,
+    planes_up,
+)
 from tfpose_tpu_torch.core.config import DecodeParams
-from tfpose_tpu_torch.ops import nms, paf, resize
+from tfpose_tpu_torch.core.topology import pairs_array
+from tfpose_tpu_torch.ops import resize
 from tfpose_tpu_torch.ops.kernels.paf_score import (
-    paf_sample_scores,
-    paf_sample_scores_plain,
+    score_candidates_raw,
+    score_candidates_raw_plain,
 )
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     smooth_nms,
@@ -80,25 +88,57 @@ def test_topk_raw_kernel_on_a_plateau(nets, cap):
     assert bool((i[0] >= 0).all()) and bool((i[1] == -1).all())
 
 
-@pytest.mark.parametrize("up", [1, 4])
-def test_smooth_nms_kernel(nets, up):
-    heat = resize.resize_area(nets[0, ..., :19], 46 * up, 54 * up)
-    got, want = smooth_nms(heat.contiguous()), smooth_nms_plain(heat)
-    k2_compare(got, want, heat)  # values 1e-6; flips only at near-ties
+@pytest.fixture(scope="module")
+def nets8(nets):
+    rng = np.random.default_rng(8)
+    scenes = [synthetic.render_scene(rng, n, 46, 54)[0]
+              for n in (1, 4, 0, 2, 6)]
+    return torch.cat([nets, torch.from_numpy(np.stack(scenes)).cuda()])
 
 
-def test_paf_sample_kernel(nets):
-    s, i = smooth_nms_topk_raw(
-        nets[..., :18].permute(1, 2, 0, 3).reshape(46, 54, -1).contiguous(),
-        4, 4, 32, 0.05)
-    s, i = s.reshape(3, 18, 32), i.reshape(3, 18, 32).clamp(min=0)
-    pk = nms.Peaks(x=i % 216, y=i // 216, score=s, valid=s > 0.05)
-    samples, _ = paf.raw_sample_inputs(pk, nets[..., 19:], 184, 216,
-                                       DecodeParams())
-    m, c = paf_sample_scores(*samples, s_paf=10, thresh=0.05)
-    m0, c0 = paf_sample_scores_plain(*samples, s_paf=10, thresh=0.05)
-    assert torch.equal(c, c0)
-    torch.testing.assert_close(m, m0, rtol=0, atol=1e-6)
+@pytest.mark.parametrize("shape, kernlen", [
+    ((184, 216), 25), ((46, 54), 25), ((115, 135), 25), ((10, 12), 25),
+    ((22, 26), 25), ((184, 216), 13)])
+def test_smooth_nms_kernel(nets, shape, kernlen):
+    """Bit for bit against the plain version on the 4x and 2.5x maps, the
+    warm-up's 1x maps and at 13 taps (the run-time loops)."""
+    heat = resize.resize_area(nets[0, ..., :19], *shape).contiguous()
+    k2_compare(smooth_nms(heat, kernlen), smooth_nms_plain(heat, kernlen),
+               f"{shape} {kernlen} taps")
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("k", [32, 128])
+def test_paf_sample_kernel(nets8, b, k):
+    """The fused candidate scorer bit for bit against its plain version
+    (``ok`` and ``score``), with one pair of image 0 without a valid
+    a-peak (the row skip's nrows 0)."""
+    heat8 = nets8[:b, ..., :18].permute(1, 2, 0, 3).reshape(46, 54, -1)
+    pk = peaks_of(*smooth_nms_topk_raw(heat8.contiguous(), 4, 4, k, 0.05),
+                  b, 216)
+    valid = pk.valid.clone()
+    valid[0, pairs_array()[0, 0]] = False
+    pk = pk._replace(valid=valid)
+    params = DecodeParams()
+    got = score_candidates_raw(pk, nets8[:b, ..., 19:], 184, 216, params)
+    k3_compare(got, score_candidates_raw_plain(pk, nets8[:b, ..., 19:], 184,
+                                               216, params), f"B={b} K={k}")
+    assert not bool(got.ok[0, 0].any()) and bool(got.ok.any())
+
+
+def test_paf_sample_kernel_on_the_windowed_grid(nets):
+    """A 1280x720 frame's merged 90x160 grid at 4x, peaks from the
+    full-resolution top-K, with and without the row skip."""
+    net = torch.from_numpy(synthetic.render_scene(
+        np.random.default_rng(4), 3, 90, 160)[0]).to(nets.device)
+    pk = peaks_of(*smooth_nms_topk(planes_up(net[None], 360, 640), 32, 0.05),
+                  1, 640)
+    params = DecodeParams()
+    for prefix_valid in (True, False):
+        args = (pk, net[None, ..., 19:], 360, 640, params, prefix_valid)
+        got = score_candidates_raw(*args)
+        k3_compare(got, score_candidates_raw_plain(*args), "90x160")
+    assert bool(got.ok.any())
 
 
 @pytest.mark.parametrize("k, cap", [(32, 4096), (128, 4096), (32, 32)])

@@ -26,12 +26,19 @@ from tfpose_tpu.ops.pallas.smooth_nms import (
 )
 from tfpose_tpu.utils import synthetic
 from tfpose_tpu_torch.core.config import DecodeParams
-from tfpose_tpu_torch.ops import nms, paf
+from tfpose_tpu_torch.core.topology import pairs_array
+from tfpose_tpu_torch.ops import nms
 from tfpose_tpu_torch.ops.kernels import build
-from tfpose_tpu_torch.ops.kernels.paf_score import paf_sample_scores
+from tfpose_tpu_torch.ops.kernels.paf_score import (
+    MAX_STEPS,
+    SCORE_ARGTYPES,
+    paf_sample_scores_plain,
+    score_candidates_raw,
+)
 from chip_smoke import k1_phase_reference
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     LIST_CAP,
+    SMOOTH_NMS_ARGTYPES,
     TOPK_ARGTYPES,
     TOPK_RAW_ARGTYPES,
     MAX_K,
@@ -190,13 +197,15 @@ def test_phase_route_equals_the_old_shared_memory_rule(f):
     assert not can_use_phase_kernel(46, 54, 9 * 46, 9 * 54)
 
 
-@pytest.mark.parametrize("shape", [(46, 54, 19), (184, 216, 19)])
+@pytest.mark.parametrize("shape", [(46, 54, 19), (184, 216, 19),
+                                   (10, 12, 19), (22, 26, 19),
+                                   (115, 135, 19)])
 def test_smooth_nms_plain_vs_pallas(shape):
     """atol 1e-6, which also holds the nonzero mask (value >= its 3x3
-    max) equal wherever the kept value exceeds 1e-6."""
+    max) equal wherever the kept value exceeds 1e-6; at the main path's
+    4x map, the 2.5x map and the three maps of the 432x368 warm-up."""
     h, w, _ = shape
-    net, _ = synthetic.render_scene(np.random.default_rng(3), 3, h // 4 * 4
-                                    if h > 46 else h, w)
+    net, _ = synthetic.render_scene(np.random.default_rng(3), 3, h, w)
     rng = np.random.default_rng(4)
     heat = (net[..., :19] + rng.normal(0, 0.05, net[..., :19].shape)
             ).astype(np.float32)
@@ -204,6 +213,33 @@ def test_smooth_nms_plain_vs_pallas(shape):
     got = smooth_nms(_t(heat)).numpy()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
     assert (got > 0.05).sum() > 0
+
+
+@pytest.mark.parametrize("kernlen", [13, 4, 1])
+def test_smooth_nms_plain_vs_pallas_other_blur_lengths(kernlen):
+    """Blur lengths other than 25 (the kernel's run-time loops; an even
+    one pads kernlen // 2 on each side as the JAX kernel does): atol 1e-6
+    on a 22x26 map, smaller than the 25-tap blur's reach."""
+    net, _ = synthetic.render_scene(np.random.default_rng(kernlen), 2, 22,
+                                    26)
+    heat = np.ascontiguousarray(net[..., :19])
+    ref = np.asarray(smooth_nms_pallas(jnp.asarray(heat), kernlen,
+                                       interpret=True))
+    got = smooth_nms(_t(heat), kernlen).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
+    assert (got > 0.05).sum() > 0
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda x: smooth_nms(x, kernlen=0), "kernlen"),
+    (lambda x: smooth_nms(x, kernlen=MAX_TAPS + 1), "kernlen"),
+    (lambda x: smooth_nms(x[:, :, :0]), "empty"),
+    (lambda x: smooth_nms(x[:0]), "empty")])
+def test_smooth_nms_checks_its_limits_on_every_device(call, match):
+    """The blur length (1..64) and a non-empty map are checked before a
+    device is chosen, so the CPU raises where the card would."""
+    with pytest.raises(ValueError, match=match):
+        call(torch.zeros(6, 7, 2))
 
 
 def _paf_inputs(seed, p, k, h8, w8, s=10):
@@ -242,10 +278,8 @@ def test_paf_sample_scores_plain_vs_pallas(k):
         jnp.asarray(np.pad(ix, pad)), jnp.asarray(np.pad(vx, pad)),
         jnp.asarray(np.pad(vy, pad)), s_paf=10, thresh=0.05,
         nrows=jnp.asarray(nrows), interpret=True)
-    before = paf_sample_scores.launches
-    m, c = paf_sample_scores(_t(planes), _t(iy), _t(ix), _t(vx), _t(vy),
-                             _t(nrows), s_paf=10, thresh=0.05)
-    assert paf_sample_scores.launches == before
+    m, c = paf_sample_scores_plain(_t(planes), _t(iy), _t(ix), _t(vx),
+                                   _t(vy), _t(nrows), s_paf=10, thresh=0.05)
     np.testing.assert_array_equal(c.numpy(), np.asarray(c_ref)[:, :kk])
     np.testing.assert_allclose(m.numpy(), np.asarray(m_ref)[:, :kk],
                                rtol=0, atol=1e-6)
@@ -253,30 +287,90 @@ def test_paf_sample_scores_plain_vs_pallas(k):
     assert c.numpy()[-1].sum() > 0
 
 
-def test_score_candidates_raw_batch_vs_pallas_batch():
-    """The port's raw-grid scorer vs ``score_candidates_pallas_batch``
-    (interpret): ``ok`` exact, scores within 1e-5, on a mixed batch."""
-    params = JaxParams()
-    nets = np.stack([synthetic.render_scene(np.random.default_rng(s), n,
-                                            46, 54)[0]
-                     for s, n in [(0, 4), (1, 0), (2, 1)]])
+def _jax_peaks(nets, k, f=4):
+    """The JAX raw-grid top-K's peaks of each net (B, h8, w8, 57) at f x,
+    as numpy arrays (x, y, score, valid)."""
+    up_w = nets.shape[2] * f
 
     def peaks_of(net):
-        s, i = smooth_nms_topk_raw_pallas(net[..., :18], 4, 4, 32, 0.05,
+        s, i = smooth_nms_topk_raw_pallas(net[..., :18], f, f, k, 0.05,
                                           interpret=True)
         i = jnp.maximum(i, 0)
-        return j_nms.Peaks(x=i % 216, y=i // 216, score=s, valid=s > 0.05)
+        return j_nms.Peaks(x=i % up_w, y=i // up_w, score=s, valid=s > 0.05)
 
-    pk = jax.vmap(peaks_of)(jnp.asarray(nets))
+    return [np.array(a) for a in jax.vmap(peaks_of)(jnp.asarray(nets))]
+
+
+def _people_peaks(people, k, f=4):
+    """Peaks (1, 18, K) at the people's parts, scaled to the f x grid,
+    valid in a prefix of each part's slots: the raw-grid top-K's layout
+    without running it (a 90x160 plane at 4x)."""
+    x = np.zeros((1, 18, k), np.int32)
+    y = np.zeros_like(x)
+    valid = np.zeros((1, 18, k), bool)
+    for part in range(18):
+        pts = people[:, part]
+        pts = pts[~np.isnan(pts).any(1)][:k]
+        x[0, part, :len(pts)] = np.round(pts[:, 0] * f + f // 2)
+        y[0, part, :len(pts)] = np.round(pts[:, 1] * f + f // 2)
+        valid[0, part, :len(pts)] = True
+    return [x, y, valid.astype(np.float32), valid]
+
+
+def _scorer_cases(case):
+    """(nets (B, h8, w8, 57), peaks [x, y, score, valid], K, up_h, up_w)
+    with three planted cases: image 0's pair 0 has no valid a-peak
+    (nrows 0), its pair 3 no valid b-peak, and pair 5's first b-peak sits
+    on its first a-peak (norm 0, so ``safe`` is False)."""
+    pairs = pairs_array()
+    if case == "90x160 4x K=32":
+        net, people = synthetic.render_scene(np.random.default_rng(9), 3,
+                                             90, 160)
+        nets, k = net[None], 32
+        pk = _people_peaks(people, k)
+    else:
+        k = 32 if case == "46x54 B=3 K=32" else 16
+        nets = np.stack([synthetic.render_scene(np.random.default_rng(s), n,
+                                                46, 54)[0]
+                         for s, n in [(0, 4), (1, 0), (2, 1)]])
+        pk = _jax_peaks(nets, k)
+    x, y, score, valid = pk
+    valid[0, pairs[0, 0]] = False
+    valid[0, pairs[3, 1]] = False
+    pa, pb = pairs[5]
+    assert valid[0, pa, 0] and valid[0, pb, 0]
+    x[0, pb, 0], y[0, pb, 0] = x[0, pa, 0], y[0, pa, 0]
+    h8, w8 = nets.shape[1:3]
+    return nets, [x, y, score, valid], k, 4 * h8, 4 * w8
+
+
+@pytest.mark.parametrize("prefix_valid", [True, False])
+@pytest.mark.parametrize("case", ["46x54 B=3 K=32", "46x54 B=3 K=16",
+                                  "90x160 4x K=32"])
+def test_score_candidates_raw_batch_vs_pallas_batch(case, prefix_valid):
+    """The port's raw-grid scorer (:func:`score_candidates_raw` on the
+    CPU) vs ``score_candidates_pallas_batch`` (interpret): ``ok`` exact,
+    scores within 1e-5, on a mixed batch at K = 32 and 16 and on a
+    1280x720 frame's merged 90x160 grid at 4x, with a pair without valid
+    a-peaks, one without valid b-peaks and a zero-length candidate."""
+    params = JaxParams()
+    nets, pk, k, up_h, up_w = _scorer_cases(case)
     ref = j_paf.score_candidates_pallas_batch(
-        pk, jnp.asarray(nets[..., 19:]), 184, 216, params, interpret=True)
-    got = paf.score_candidates_raw_batch(
-        nms.Peaks(*(_t(a) for a in pk)), _t(nets[..., 19:]), 184, 216,
-        DecodeParams())
+        j_nms.Peaks(*(jnp.asarray(a) for a in pk)),
+        jnp.asarray(nets[..., 19:]), up_h, up_w, params, interpret=True,
+        prefix_valid=prefix_valid)
+    before = score_candidates_raw.launches
+    got = score_candidates_raw(
+        nms.Peaks(*(_t(a) for a in pk)), _t(nets[..., 19:]), up_h, up_w,
+        DecodeParams(), prefix_valid=prefix_valid)
+    assert score_candidates_raw.launches == before  # CPU: no kernel launch
+    assert got.ok.shape == (len(nets), 19, k, k) and got.ok.dtype == torch.bool
     np.testing.assert_array_equal(got.ok.numpy(), np.asarray(ref.ok))
     np.testing.assert_allclose(got.score.numpy(), np.asarray(ref.score),
                                rtol=0, atol=1e-5)
     assert got.ok.numpy().sum() > 10
+    assert not got.ok.numpy()[0, [0, 3]].any()
+    assert not got.ok.numpy()[0, 5, 0, 0]
 
 
 def test_wrappers_reject_bad_inputs():
@@ -288,10 +382,37 @@ def test_wrappers_reject_bad_inputs():
         smooth_nms_topk(torch.zeros(4, 4, 2), 1025, 0.05)
     with pytest.raises(ValueError, match="cap"):
         smooth_nms_topk(torch.zeros(4, 4, 2), 32, 0.05, cap=16)
-    z = torch.zeros(2, 10, 4, dtype=torch.int32)
+    z = torch.zeros(2, 18, 4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        paf_sample_scores(torch.zeros(2, 2, 3, 3), z, z, z.float(),
-                          z.float(), s_paf=9, thresh=0.05)
+        score_candidates_raw(nms.Peaks(z, z, z.float(), z.bool()),
+                             torch.zeros(2, 3, 3, 37), 12, 12,
+                             DecodeParams())
+
+
+def _scorer_args(b=2, k=4, h8=3, w8=3, dtype=torch.int32):
+    z = torch.zeros(b, 18, k, dtype=dtype)
+    return nms.Peaks(z, z, z.float(), z.bool()), torch.zeros(b, h8, w8, 38)
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: score_candidates_raw(*_scorer_args(), 13, 12, DecodeParams()),
+     "integer upsample"),
+    (lambda: score_candidates_raw(*_scorer_args(), 2, 12, DecodeParams()),
+     "integer upsample"),
+    (lambda: score_candidates_raw(*_scorer_args(k=1025), 12, 12,
+                                  DecodeParams()), "K in"),
+    (lambda: score_candidates_raw(*_scorer_args(), 12, 12, DecodeParams(
+        step_paf=MAX_STEPS + 1)), "step_paf"),
+    (lambda: score_candidates_raw(*_scorer_args(dtype=torch.int64), 12, 12,
+                                  DecodeParams()), "peaks.x"),
+    (lambda: score_candidates_raw(_scorer_args()[0], torch.zeros(3, 3, 3, 38),
+                                  12, 12, DecodeParams()), "paf8")])
+def test_score_candidates_raw_checks_its_inputs_on_every_device(call, match):
+    """Peaks (B, 18, K) int32/bool with K in 1..1024, a raw PAF of the same
+    batch, an integer upsample and 1..64 samples are checked before a
+    device is chosen, so the CPU raises where the card would."""
+    with pytest.raises(ValueError, match=match):
+        call()
 
 
 def test_topk_smem_fits_hopper_at_main_path_sizes():
@@ -366,27 +487,32 @@ def test_build_dir_hashes_sources_and_finds_all_kernels():
 
 
 def test_build_dir_hashes_the_shared_header():
-    """``csrc/peak_select.cuh`` is shared by the two top-K sources: it is
-    hashed into the build directory's name but not compiled alone."""
+    """``csrc/peak_select.cuh`` is shared by the two top-K sources and the
+    smooth + NMS source: it is hashed into the build directory's name but
+    not compiled alone."""
     names = build._sources()
     assert "peak_select.cuh" in names
-    for stem in ("smooth_nms_topk", "smooth_nms_topk_raw"):
+    for stem in ("smooth_nms_topk", "smooth_nms_topk_raw", "smooth_nms"):
         with open(os.path.join(build.CSRC, stem + ".cu")) as f:
             assert '#include "peak_select.cuh"' in f.read()
 
 
 @pytest.mark.parametrize("stem, symbol, argtypes", [
     ("smooth_nms_topk_raw", "smooth_nms_topk_raw_launch", TOPK_RAW_ARGTYPES),
-    ("smooth_nms_topk", "smooth_nms_topk_launch", TOPK_ARGTYPES)])
+    ("smooth_nms_topk", "smooth_nms_topk_launch", TOPK_ARGTYPES),
+    ("smooth_nms", "smooth_nms_launch", SMOOTH_NMS_ARGTYPES),
+    ("paf_score", "score_candidates_raw_launch", SCORE_ARGTYPES)])
 def test_launcher_argtypes_match_the_c_signature(stem, symbol, argtypes):
     """ctypes passes what the wrapper declares: the declared types must
     follow the C launch function's parameters one for one (pointers,
-    ints, the float threshold), or the card call fails."""
+    ints, 64-bit strides, the float thresholds), or the card call
+    fails."""
     with open(os.path.join(build.CSRC, stem + ".cu")) as f:
         src = f.read()
     head = src[src.index(f'extern "C" int {symbol}('):]
     params = head[head.index("(") + 1:head.index(")")].split(",")
     kinds = [ctypes.c_void_p if "*" in p else
-             ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
-             for p in params]
+             ctypes.c_float if p.split()[0] == "float" else
+             ctypes.c_longlong if p.split()[:2] == ["long", "long"] else
+             ctypes.c_int for p in params]
     assert kinds == list(argtypes)

@@ -1,6 +1,7 @@
 // Shared pieces of the two top-K kernels (smooth_nms_topk.cu and
-// smooth_nms_topk_raw.cu): peak keys, the tap run of a separable blur,
-// the 3x3 NMS with its warp-ballot append, and the per-plane select.
+// smooth_nms_topk_raw.cu): peak keys, the tap run of a separable blur
+// (also smooth_nms.cu's), the 3x3 NMS with its warp-ballot append, and the
+// per-plane select.
 //
 // Both kernels run in two launches on one stream. A peaks pass, one block
 // per output tile and plane, blurs the tile and its one-pixel ring into
@@ -48,23 +49,24 @@ __device__ __forceinline__ int key_index(u64 k) {
 
 __device__ __forceinline__ float neg_inf() { return -__int_as_float(0x7f800000); }
 
-// n_out outputs of a 1-D blur run along src (stride `stride` between taps):
-//   out[j] = k[0]*src[j] + k[1]*src[j+1] + ... in tap order,
+// n_out outputs of a 1-D blur run over the values src(0), src(1), ...:
+//   out[j] = k[0]*src(j) + k[1]*src(j+1) + ... in tap order,
 // every product and sum rounded (__fmul_rn / __fadd_rn, never a fused
 // multiply-add), as the JAX kernels and the plain PyTorch versions sum.
 // With SKIP0 a tap t > 0 of weight 0 is skipped, as the raw-grid kernel's
 // phase weights are. NT > 0: NT taps known at compile time, the run's
 // window (R + NT - 1 values) read once into registers, R independent sums
 // for the scheduler to interleave, weights as compile-time-indexed
-// operands. NT == 0: nt taps at run time, a plain loop over shared memory.
-template <int NT, int R, bool SKIP0>
-__device__ __forceinline__ void tap_run(const float* __restrict__ src, int stride,
-                                        const float* __restrict__ k, int nt,
-                                        int n_out, float (&out)[R]) {
+// operands. NT == 0: nt taps at run time, a plain loop that reads each
+// value once per tap. src is any accessor: a strided array in shared
+// memory (tap_run) or device memory with the caller's zero padding.
+template <int NT, int R, bool SKIP0, typename Src>
+__device__ __forceinline__ void tap_run_of(Src src, const float* __restrict__ k, int nt,
+                                           int n_out, float (&out)[R]) {
   if constexpr (NT > 0) {
     float w[R + NT - 1];
 #pragma unroll
-    for (int i = 0; i < R + NT - 1; ++i) w[i] = i < n_out + NT - 1 ? src[i * stride] : 0.0f;
+    for (int i = 0; i < R + NT - 1; ++i) w[i] = i < n_out + NT - 1 ? src(i) : 0.0f;
 #pragma unroll
     for (int j = 0; j < R; ++j) {
       float acc = __fmul_rn(k[0], w[j]);
@@ -77,15 +79,23 @@ __device__ __forceinline__ void tap_run(const float* __restrict__ src, int strid
     }
   } else {
     for (int j = 0; j < n_out && j < R; ++j) {
-      const float* x = src + j * stride;
-      float acc = __fmul_rn(k[0], x[0]);
+      float acc = __fmul_rn(k[0], src(j));
       for (int t = 1; t < nt; ++t) {
         if (SKIP0 && k[t] == 0.0f) continue;
-        acc = __fadd_rn(acc, __fmul_rn(k[t], x[t * stride]));
+        acc = __fadd_rn(acc, __fmul_rn(k[t], src(j + t)));
       }
       out[j] = acc;
     }
   }
+}
+
+// tap_run_of over src[0], src[stride], src[2 * stride], ...
+template <int NT, int R, bool SKIP0>
+__device__ __forceinline__ void tap_run(const float* __restrict__ src, int stride,
+                                        const float* __restrict__ k, int nt,
+                                        int n_out, float (&out)[R]) {
+  tap_run_of<NT, R, SKIP0>([src, stride](int i) { return src[i * stride]; }, k, nt, n_out,
+                           out);
 }
 
 // 3x3 NMS, threshold and append over a TH x TW output tile whose smoothed

@@ -15,7 +15,7 @@ CUDA kernel for a CUDA tensor and its plain version for a CPU tensor:
   an integer replication within the route's size limit
   (``can_use_phase_kernel``),
   else the area-upsampled heat through :func:`smooth_nms_topk`; the
-  raw-grid PAF sampler (:func:`score_candidates_raw_batch`) at any
+  raw-grid PAF scorer (:func:`score_candidates_raw`) at any
   integer ratio, else the gather scorer on the area-upsampled PAF;
 * :func:`postprocess` + :func:`decode_maps` (the public single-image
   ``inference`` path, which also returns the maps): area upsample,
@@ -33,6 +33,7 @@ from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.core.topology import NUM_HEATMAP_CH, NUM_PARTS
 from tfpose_tpu_torch.ops import nms, paf, resize
 from tfpose_tpu_torch.ops.assemble import Assembled, assemble_dense
+from tfpose_tpu_torch.ops.kernels.paf_score import score_candidates_raw
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     can_use_phase_kernel,
     smooth_nms,
@@ -104,8 +105,8 @@ def decode_batch(net_out: torch.Tensor, up_h: int, up_w: int,
     pk = nms.Peaks(x=idx % up_w, y=idx // up_w, score=scores,
                    valid=scores > params.thresh_heat)
     if _integer_upsample(h8, w8, up_h, up_w):
-        cands = paf.score_candidates_raw_batch(pk, pafm, up_h, up_w, params,
-                                               prefix_valid=True)
+        cands = score_candidates_raw(pk, pafm, up_h, up_w, params,
+                                     prefix_valid=True)
     else:
         cands = paf.score_candidates_batch(
             pk, resize.resize_area(pafm, up_h, up_w), params)

@@ -1,9 +1,10 @@
 """Gaussian heatmap smoothing (reference ``tf_pose/tensblur/smoother.py``).
 
-Port of ``tfpose_tpu/ops/gaussian.py``: a 25x25 kernel from differences
-of the normal CDF (nsig=3), the outer product of a 1-D vector with
-itself normalised by its sum, applied as two 1-D depthwise convolutions
-with zero SAME padding.
+Port of ``tfpose_tpu/ops/gaussian.py``'s kernel: a 25x25 kernel from
+differences of the normal CDF (nsig=3), the outer product of a 1-D vector
+with itself normalised by its sum. The blur that applies it, two 1-D
+passes with zero SAME padding, is the smoothing kernels' plain version
+(``ops/kernels/smooth_nms.py:blur_in_tap_order``).
 """
 
 from __future__ import annotations
@@ -11,8 +12,6 @@ from __future__ import annotations
 import functools
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=16)
@@ -26,22 +25,3 @@ def gauss_kernel_1d(kernlen: int = 25, nsig: float = 3.0) -> np.ndarray:
     kern1d = np.diff(stats.norm.cdf(x))
     # 2-D kernel = outer(k, k) / sum(outer(k, k)) => 1-D factor = k / sum(k)
     return (kern1d / kern1d.sum()).astype(np.float32)
-
-
-def smooth(x: torch.Tensor, kernlen: int = 25, nsig: float = 3.0
-           ) -> torch.Tensor:
-    """Separable depthwise Gaussian blur, SAME zero padding, on (H, W, C)
-    or (N, H, W, C); vertical pass first, as in JAX."""
-    squeeze = x.dim() == 3
-    if squeeze:
-        x = x[None]
-    c = x.shape[-1]
-    k1 = torch.from_numpy(gauss_kernel_1d(kernlen, nsig)).to(x.device)
-    pad = kernlen // 2
-    y = x.float().permute(0, 3, 1, 2)
-    y = F.conv2d(y, k1.view(1, 1, kernlen, 1).expand(c, 1, kernlen, 1),
-                 padding=(pad, 0), groups=c)
-    y = F.conv2d(y, k1.view(1, 1, 1, kernlen).expand(c, 1, 1, kernlen),
-                 padding=(0, pad), groups=c)
-    y = y.permute(0, 2, 3, 1)
-    return y[0] if squeeze else y

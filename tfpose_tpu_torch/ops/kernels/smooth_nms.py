@@ -5,8 +5,9 @@ with its plain PyTorch version beside it:
 
 * :func:`smooth_nms` (``csrc/smooth_nms.cu``) replaces
   ``smooth_nms_pallas``: the 25-tap blur of an upsampled (H, W, C) heat
-  map with zero SAME padding, then keep a value where it is >= its 3x3
-  neighbourhood max, else 0. No threshold.
+  map with zero SAME padding, summed in tap order, then keep a value
+  where it is >= its 3x3 neighbourhood max, else 0. No threshold. It
+  reads and writes the (H, W, C) layout in place of a transposed copy.
 * :func:`smooth_nms_topk_raw` (``csrc/smooth_nms_topk_raw.cu``) replaces
   ``smooth_nms_topk_raw_pallas``: the same blur of the integer
   area-upsampled heat, computed as fy*fx phase convolutions on the raw
@@ -42,7 +43,7 @@ import functools
 import numpy as np
 import torch
 
-from tfpose_tpu_torch.ops.gaussian import gauss_kernel_1d, smooth
+from tfpose_tpu_torch.ops.gaussian import gauss_kernel_1d
 from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.nms import max3x3, nms, stable_topk
 
@@ -51,7 +52,7 @@ from tfpose_tpu_torch.ops.nms import max3x3, nms, stable_topk
 LIST_CAP = 4096
 # Result slots per plane, as in the JAX kernels' (8, 128) result tile.
 MAX_K = 1024
-# Longest blur the top-K kernels take (taps are a kernel parameter).
+# Longest blur the kernels take (taps are a kernel parameter).
 MAX_TAPS = 64
 # The raw-grid route's size limit: a plane's vertical phase sums
 # (fy*h8 rows of w8 + nh - 1 floats) and both phase weight tables within
@@ -63,7 +64,8 @@ PHASE_ROUTE_FLOATS = 54016
 
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
-# argument types of the top-K kernels' C launch functions, in order
+# argument types of the kernels' C launch functions, in order
+SMOOTH_NMS_ARGTYPES = [_ptr] * 3 + [_int] * 4 + [_ptr]
 TOPK_RAW_ARGTYPES = [_ptr] * 7 + [_int] * 11 + [ctypes.c_float, _int, _ptr]
 TOPK_ARGTYPES = [_ptr] * 6 + [_int] * 5 + [ctypes.c_float, _int, _ptr]
 
@@ -89,26 +91,37 @@ def _taps(kernlen: int, nsig: float, device: str) -> torch.Tensor:
 # K2: smooth + NMS on the upsampled map
 # ---------------------------------------------------------------------------
 
+def _check_kernlen(kernlen: int) -> None:
+    if not 1 <= kernlen <= MAX_TAPS:
+        raise ValueError(f"kernlen must be in 1..{MAX_TAPS}, got {kernlen}")
+
+
 def smooth_nms_plain(heat: torch.Tensor, kernlen: int = 25,
                      nsig: float = 3.0) -> torch.Tensor:
-    """(H, W, C) -> NMS'd peaks plane (H, W, C): blur, then keep values
-    >= their 3x3 max. The plain version of :func:`smooth_nms`."""
-    return nms(smooth(heat, kernlen, nsig), 3)
+    """(H, W, C) -> NMS'd peaks plane (H, W, C): blur in tap order, then
+    keep values >= their 3x3 max. The plain version of :func:`smooth_nms`,
+    rounding as the kernel does."""
+    sm = blur_in_tap_order(heat.permute(2, 0, 1), kernlen, nsig)
+    return nms(sm.permute(1, 2, 0), 3)
 
 
 def smooth_nms(heat: torch.Tensor, kernlen: int = 25,
                nsig: float = 3.0) -> torch.Tensor:
     """(H, W, C) fp32 -> NMS'd peaks plane (H, W, C), the reference
-    Smoother + ``tf.nn.pool`` NMS semantics."""
+    Smoother + ``tf.nn.pool`` NMS semantics. Any H, W, C >= 1 and
+    ``kernlen`` 1 .. ``MAX_TAPS``."""
     _check_input(heat, 3, "smooth_nms")
+    _check_kernlen(kernlen)
+    if min(heat.shape) < 1:
+        raise ValueError(f"smooth_nms: empty map {tuple(heat.shape)}")
     if heat.device.type == "cpu":
         return smooth_nms_plain(heat, kernlen, nsig)
     heat = heat.contiguous()
     h, w, c = heat.shape
     out = torch.empty_like(heat)
-    taps = _taps(kernlen, float(nsig), str(heat.device))
+    taps = _taps(kernlen, float(nsig), "cpu")  # copied into the launch
     fn = build.launcher("smooth_nms", "smooth_nms_launch",
-                        [_ptr, _ptr, _ptr, _int, _int, _int, _int, _ptr])
+                        SMOOTH_NMS_ARGTYPES)
     status = fn(heat.data_ptr(), out.data_ptr(), taps.data_ptr(),
                 h, w, c, kernlen, _stream(heat))
     build.check("smooth_nms", status, "smooth_nms")
@@ -195,8 +208,7 @@ def _check_topk(k_top: int, cap: int, kernlen: int, cap_min: int) -> None:
         raise ValueError(f"k_top must be in 1..{MAX_K}, got {k_top}")
     if not cap_min <= cap <= LIST_CAP:
         raise ValueError(f"cap must be in {cap_min}..{LIST_CAP}, got {cap}")
-    if not 1 <= kernlen <= MAX_TAPS:
-        raise ValueError(f"kernlen must be in 1..{MAX_TAPS}, got {kernlen}")
+    _check_kernlen(kernlen)
 
 
 def peak_lists(c: int, plane: int, device):

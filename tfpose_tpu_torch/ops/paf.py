@@ -19,16 +19,13 @@ from typing import NamedTuple
 import torch
 
 from tfpose_tpu_torch.core.config import DecodeParams
-from tfpose_tpu_torch.core.topology import pairs_array, paf_channels_array
-from tfpose_tpu_torch.ops.kernels.paf_score import LANES, paf_sample_scores
+from tfpose_tpu_torch.core.topology import paf_channels_array
+from tfpose_tpu_torch.ops.kernels.paf_score import (
+    Candidates,
+    candidate_geometry,
+    criteria,
+)
 from tfpose_tpu_torch.ops.nms import Peaks
-
-
-class Candidates(NamedTuple):
-    """Per-pair candidate scores; tensors are (..., num_pairs, K, K)."""
-
-    score: torch.Tensor   # criterion2 (length-penalised mean PAF score)
-    ok: torch.Tensor      # bool: passes both criteria and endpoints valid
 
 
 class Connections(NamedTuple):
@@ -44,60 +41,12 @@ class Connections(NamedTuple):
     valid: torch.Tensor   # bool
 
 
-def _pair_index(device) -> torch.Tensor:
-    return torch.as_tensor(pairs_array(), dtype=torch.long, device=device)
-
-
-def _candidate_geometry(peaks: Peaks, h: int, w: int, params: DecodeParams):
-    """Candidate geometry on an (h, w) grid: endpoint validity,
-    direction vectors, distances, and rounded sample-point flat indices.
-    Peaks are (..., 18, K); outputs (..., 19, K, K[, S])."""
-    pairs = _pair_index(peaks.x.device)
-    ax = peaks.x[..., pairs[:, 0], :].float()
-    ay = peaks.y[..., pairs[:, 0], :].float()
-    av = peaks.valid[..., pairs[:, 0], :]
-    bx = peaks.x[..., pairs[:, 1], :].float()
-    by = peaks.y[..., pairs[:, 1], :].float()
-    bv = peaks.valid[..., pairs[:, 1], :]
-
-    # a varies over dim -2, b over dim -1
-    dx = bx[..., None, :] - ax[..., :, None]
-    dy = by[..., None, :] - ay[..., :, None]
-    norm = torch.sqrt(dx * dx + dy * dy)
-    safe = norm > 1e-12
-    inv = torch.where(safe, 1.0 / torch.clamp(norm, min=1e-12),
-                      torch.zeros_like(norm))
-    vx = dx * inv
-    vy = dy * inv
-
-    steps = (torch.arange(params.step_paf, dtype=torch.float32,
-                          device=dx.device) / params.step_paf)
-    sx = ax[..., :, None, None] + dx[..., None] * steps
-    sy = ay[..., :, None, None] + dy[..., None] * steps
-    # reference roundpaf: floor(v + 0.5) (round half up, coords >= 0)
-    ix = torch.clamp(torch.floor(sx + 0.5).int(), 0, w - 1)
-    iy = torch.clamp(torch.floor(sy + 0.5).int(), 0, h - 1)
-    return vx, vy, norm, safe, av, bv, iy, ix
-
-
-def _criteria(mean, cnt, norm, safe, av, bv, h: int,
-              params: DecodeParams) -> Candidates:
-    num = torch.tensor(0.5 * h, dtype=torch.float32, device=norm.device)
-    penalty = torch.clamp(num / torch.clamp(norm, min=1e-12) - 1.0, max=0.0)
-    criterion2 = mean + penalty
-    ok = ((cnt > params.thresh_vector_cnt1)
-          & (criterion2 > 0.0)
-          & safe
-          & av[..., :, None] & bv[..., None, :])
-    return Candidates(score=criterion2, ok=ok)
-
-
 def _score_from_samples(px, py, vx, vy, norm, safe, av, bv, h,
                         params: DecodeParams) -> Candidates:
     """px/py: (..., 19, K, K, S) sampled PAF x/y channels."""
     s = vx[..., None] * px + vy[..., None] * py
     cnt = (s > params.thresh_vector_score).sum(-1)
-    return _criteria(s.mean(-1), cnt, norm, safe, av, bv, h, params)
+    return criteria(s.mean(-1), cnt, norm, safe, av, bv, h, params)
 
 
 def score_candidates_batch(peaks_b: Peaks, paf_up_b: torch.Tensor,
@@ -105,7 +54,7 @@ def score_candidates_batch(peaks_b: Peaks, paf_up_b: torch.Tensor,
     """Gather scorer: peaks (B, 18, K), ``paf_up_b`` (B, H, W, 38)
     upsampled PAF maps -> Candidates (B, 19, K, K)."""
     b, h, w, c = paf_up_b.shape
-    vx, vy, norm, safe, av, bv, iy, ix = _candidate_geometry(
+    vx, vy, norm, safe, av, bv, iy, ix = candidate_geometry(
         peaks_b, h, w, params)
     pc = torch.as_tensor(paf_channels_array(), dtype=torch.long,
                          device=paf_up_b.device)
@@ -129,65 +78,6 @@ def score_candidates(peaks: Peaks, paf_up: torch.Tensor,
     out = score_candidates_batch(Peaks(*(t[None] for t in peaks)),
                                  paf_up[None], params)
     return Candidates(score=out.score[0], ok=out.ok[0])
-
-
-def raw_sample_inputs(peaks_b: Peaks, paf8_b: torch.Tensor, up_h: int,
-                      up_w: int, params: DecodeParams,
-                      prefix_valid: bool = True):
-    """The :func:`paf_sample_scores` inputs for peaks (B, 18, K) on raw
-    planes (B, h8, w8, 38): ``(planes, iy, ix, vx, vy, nrows)`` with
-    planes (B*19, 2, h8, w8) and samples (B*19, S, K*K), plus the
-    candidate geometry ``(norm, safe, av, bv)`` (B, 19, K, K)."""
-    b, h8, w8, _ = paf8_b.shape
-    fy, fx = up_h // h8, up_w // w8
-    vx, vy, norm, safe, av, bv, iy, ix = _candidate_geometry(
-        peaks_b, up_h, up_w, params)
-    k = vx.shape[-1]
-    s = params.step_paf
-    pc = torch.as_tensor(paf_channels_array(), dtype=torch.long,
-                         device=paf8_b.device)
-    planes = paf8_b.float()[..., pc].permute(0, 3, 4, 1, 2)  # (B,19,2,h8,w8)
-    planes = planes.reshape(b * 19, 2, h8, w8)
-
-    def sample_major(a):  # (B, 19, K, K, S) -> (B*19, S, K*K)
-        return a.permute(0, 1, 4, 2, 3).reshape(b * 19, s, k * k)
-
-    if prefix_valid:
-        va = av.int().sum(-1)                                  # (B, 19)
-        nrows = torch.where(bv.any(-1), (va * k + LANES - 1) // LANES,
-                            torch.zeros_like(va))
-    else:
-        nrows = torch.full(av.shape[:2], -(-k * k // LANES),
-                           device=av.device)
-    samples = (planes, sample_major(iy // fy), sample_major(ix // fx),
-               sample_major(vx[..., None].expand(*vx.shape, s)),
-               sample_major(vy[..., None].expand(*vy.shape, s)),
-               nrows.reshape(b * 19).int())
-    return samples, (norm, safe, av, bv)
-
-
-def score_candidates_raw_batch(peaks_b: Peaks, paf8_b: torch.Tensor,
-                               up_h: int, up_w: int, params: DecodeParams,
-                               prefix_valid: bool = True) -> Candidates:
-    """Counterpart of ``score_candidates_pallas_batch``: candidates
-    scored by the :func:`paf_sample_scores` kernel on the RAW stride-8
-    planes (B, h8, w8, 38), one launch over all B*19 pairs. Exact for an
-    integer upsample factor, because integer-factor ``resize_area`` is
-    replication: paf_up[y, x] == paf8[y // f, x // f].
-
-    ``prefix_valid=True`` states that each part's valid peaks fill a
-    prefix of its K slots (true for the top-K extraction); the kernel
-    then skips candidate rows whose a-endpoints are all invalid. Those
-    candidates score 0 + penalty instead of their sampled value, which
-    nothing downstream reads (``ok`` is False there).
-    """
-    samples, (norm, safe, av, bv) = raw_sample_inputs(
-        peaks_b, paf8_b, up_h, up_w, params, prefix_valid)
-    mean, cnt = paf_sample_scores(
-        *samples, s_paf=params.step_paf,
-        thresh=float(params.thresh_vector_score))
-    return _criteria(mean.reshape(norm.shape), cnt.reshape(norm.shape),
-                     norm, safe, av, bv, up_h, params)
 
 
 def greedy_connections(cands: Candidates,
