@@ -17,7 +17,10 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      plateau too; the smooth + NMS kernel bit for bit on the 4x, 2.5x
      and warm-up maps and at 13 taps; the candidate scorer bit for bit at
      B = 1 and 8, K = 32 and 128, on a 1280x720 frame's 90x160 grid, with
-     a pair without valid peaks and without the row skip);
+     a pair without valid peaks and without the row skip); and K1-K3 at
+     the new backbones' grids on rendered maps: CMU's 46x82 (B = 1, 16;
+     K2 at 184x328x19) and mobilenet_v2_small's 46x46 (B = 1, 8; K2 at
+     184x184x19);
   3. main path: the mobilenet_thin estimator with the committed
      ``thin368_coco`` weights and 432x368 input, path by path, each with
      the launch counts set to 0 just before it and read just after:
@@ -27,16 +30,32 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      upsample 4, and ``inference_batch`` at upsample 2.5; every kernel
      must launch, the full-resolution top-K on each 720p and 2.5x path
      and the raw-grid one on no 720p path, and the humans must equal
-     those of the same estimator on the CPU. The card's area downscale
+     those of the same estimator on the CPU; its AP50 on 50 rendered
+     432x368 scenes must reach 0.95 (``tests/test_coco_path.py``'s gate
+     for ``thin368_coco``). The card's area downscale
      of a 1280x720 frame is held against the CPU's;
-  4. timing (CUDA events, after warm-up; device time per launch from
+  4. backbones, path by path with the launch counts reset before each:
+     ``mobilenet_v2_small`` at 368x368 (``inference`` x8 and
+     ``inference_batch`` B=8) and ``mobilenet_v2_large`` at 432x368
+     (``inference`` x4) with their committed checkpoints, humans equal to
+     the CPU estimator's, and their AP50 on 50 / 25 rendered 160x160
+     scenes at least 0.90 / 0.88 (``tests/test_coco_path.py``'s gates);
+     ``cmu`` at 656x368 (``inference`` and ``inference_batch`` B=16) with
+     seeded random weights (its 200 MB checkpoint is not read): its
+     ``concat_stage7`` against the CPU forward of two frames (TF32 off),
+     K1-K3 against their plain versions on the card's own CMU maps, and
+     rendered 46x82 scene maps through ``decode_batch`` (B = 1, 16) and
+     ``postprocess`` with humans equal to the CPU decode's;
+  5. timing (CUDA events, after warm-up; device time per launch from
      ``torch.profiler``): each kernel (the two top-K kernels at both
      shapes of their paths: B = 1 and 8 at 4x; 360x640x18 and
      115x135x144; the candidate scorer at B = 1 and 8 and on the 90x160
      grid), ``inference``
      latency, ``inference_batch`` images per second at B = 1, 8, 16 and
      at upsample 2.5, and ``inference_windowed`` / ``inference_multiscale``
-     latency on 1280x720 frames; ``torch.profiler`` breakdowns.
+     latency on 1280x720 frames; ``torch.profiler`` breakdowns; and for
+     the backbones of phase 4: latency (median, p90), images per second
+     of the batches, and their profiles; K1-K3 at the new grids.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 The last lines are the kernels driven, one JSON line per the kernels'
@@ -60,6 +79,10 @@ H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12      # fp32 outside the tensor cores
 CHECKPOINT = os.path.join(ROOT, "models", "trained", "thin368_coco",
                           "params.msgpack")
+V2_CHECKPOINTS = {
+    name: os.path.join(ROOT, "models", "trained", ckpt, "params.msgpack")
+    for name, ckpt in (("mobilenet_v2_small", "v2small160_coco"),
+                       ("mobilenet_v2_large", "v2large160_coco"))}
 
 
 def log(msg: str) -> None:
@@ -184,6 +207,13 @@ def k3_compare(got, want, what: str) -> None:
           f"max |d| {(got.score - want.score).abs().max().item():.3g}")
 
 
+def heat8_of(net_b):
+    """(B, h8, w8, 57) -> the (h8, w8, B*18) part planes, as decode_batch
+    flattens them for K1."""
+    h8, w8 = net_b.shape[1:3]
+    return net_b[..., :18].permute(1, 2, 0, 3).reshape(h8, w8, -1)
+
+
 def peaks_of(s, i, b, up_w):
     """The top-K kernels' (scores, flat indices) of b * 18 planes as the
     Peaks (b, 18, K) that decode_batch scores."""
@@ -248,6 +278,12 @@ def k1_phase_reference(heat8, fy, fx, k_top, thresh, kernlen=25, nsig=3.0):
 WINDOWED = "inference_windowed 1280x720 x2 (4x)"
 MULTISCALE = "inference_multiscale 1280x720 scales (1.0, 1.5) (4x)"
 BATCH25 = "inference_batch B=8 (2.5x)"
+V2S_INF = "mobilenet_v2_small inference x8 368x368 (4x)"
+V2S_BATCH = "mobilenet_v2_small inference_batch B=8 368x368 (4x)"
+V2L_INF = "mobilenet_v2_large inference x4 432x368 (4x)"
+CMU_INF = "cmu inference 656x368 (4x)"
+CMU_BATCH = "cmu inference_batch B=16 656x368 (4x)"
+CMU_MAPS = "cmu rendered 46x82 maps: decode_batch B=1, B=16, postprocess"
 
 
 def planes_up(net_b, up_h, up_w):
@@ -257,6 +293,28 @@ def planes_up(net_b, up_h, up_w):
 
     heat = resize.resize_area(net_b[..., :19], up_h, up_w)[..., :18]
     return heat.permute(0, 3, 1, 2).reshape(-1, up_h, up_w).permute(1, 2, 0)
+
+
+def scene_nets(seed, people, h8, w8):
+    """Rendered (len(people), h8, w8, 57) net outputs of people[i]
+    people each."""
+    import numpy as np
+
+    from tfpose_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    return np.stack([synthetic.render_scene(rng, n, h8, w8)[0]
+                     for n in people])
+
+
+def humans_of(out):
+    """A batched decode result -> a list of human lists."""
+    from tfpose_tpu_torch.estimator import TfPoseEstimator
+    from tfpose_tpu_torch.ops.assemble import Assembled
+
+    arrays = Assembled(*(t.cpu().numpy() for t in out))
+    return [TfPoseEstimator._humans(Assembled(*(a[i] for a in arrays)))
+            for i in range(arrays.coords.shape[0])]
 
 
 def render_frames(rng, n, h, w):
@@ -308,6 +366,10 @@ def main() -> int:
 
     from tfpose_tpu_torch.core.config import DecodeParams
     from tfpose_tpu_torch.estimator import TfPoseEstimator
+    from tfpose_tpu_torch.evaluation.coco_eval import synthetic_e2e
+    from tfpose_tpu_torch.models import get_checkpoint_path
+    from tfpose_tpu_torch.ops.decode import (
+        decode_batch, decode_maps, postprocess)
     from tfpose_tpu_torch.ops import resize
     from tfpose_tpu_torch.ops.kernels import build
     from tfpose_tpu_torch.core.topology import pairs_array
@@ -361,9 +423,6 @@ def main() -> int:
     noise = torch.from_numpy(rng.normal(0, 0.3, (46, 54, 18)).astype(
         np.float32)).to(dev)
 
-    def heat8_of(b):  # (46, 54, b*18), as decode_batch flattens it
-        return nets[:b, ..., :18].permute(1, 2, 0, 3).reshape(46, 54, -1)
-
     def k1_pair(x, k, cap=None, f=4, plain=True):
         """K1 against its plain version (indices exact, scores rtol 1e-5)
         and bit for bit against its own phase arithmetic."""
@@ -385,7 +444,7 @@ def main() -> int:
     with phase("2 kernel parity"):
         for b in (1, 8):
             for k in (32, 128):
-                s, i = k1_pair(heat8_of(b), k)
+                s, i = k1_pair(heat8_of(nets[:b]), k)
                 log(f"K1 smooth_nms_topk_raw B={b} K={k}: "
                     f"{int((i >= 0).sum())} peaks, indices equal")
         for k in (32, 128):
@@ -395,7 +454,7 @@ def main() -> int:
         for k in (32, 128):
             k1_pair(noise, k, cap=16)  # more peaks than the list: radix path
         log("K1 radix select (cap=16) equals the plain version")
-        s, i = k1_pair(heat8_of(8), 32, f=2)
+        s, i = k1_pair(heat8_of(nets), 32, f=2)
         log(f"K1 at 2x (run-time loops) B=8: {int((i >= 0).sum())} peaks, "
             f"indices equal")
         flat = torch.full((46, 54, 2), 0.5, device=dev)
@@ -434,7 +493,7 @@ def main() -> int:
         for b in (1, 8):
             for k in (32, 128):
                 pk = peaks_of(*smooth_nms_topk_raw(
-                    heat8_of(b).contiguous(), 4, 4, k, 0.05), b, 216)
+                    heat8_of(nets[:b]).contiguous(), 4, 4, k, 0.05), b, 216)
                 # no valid peak of pair 0's first part in image 0: nrows 0
                 valid = pk.valid.clone()
                 valid[0, pairs[0, 0]] = False
@@ -479,6 +538,35 @@ def main() -> int:
         for k in (32, 128):
             k3_pair(peaks_of(*smooth_nms_topk(x720, k, 0.05), 1, 640),
                     net720[None, ..., 19:], 360, 640, f"90x160 grid K={k}")
+
+        # the new backbones' grids at 4x: CMU at 656x368 (46x82, B = 16)
+        # and mobilenet_v2_small at 368x368 (46x46, B = 8)
+        grid_nets = {
+            (46, 82): torch.from_numpy(scene_nets(
+                82, [3, 1, 5, 0, 2, 6, 4, 2] * 2, 46, 82)).to(dev),
+            (46, 46): torch.from_numpy(scene_nets(
+                46, [2, 1, 3, 0, 2, 4, 1, 2], 46, 46)).to(dev)}
+        for (h8, w8), net_g in grid_nets.items():
+            up_h, up_w = 4 * h8, 4 * w8
+            for b in (1, len(net_g)):
+                for k in (32, 128):
+                    s, i = k1_pair(heat8_of(net_g[:b]), k)
+                    log(f"K1 at {h8}x{w8} B={b} K={k} "
+                        f"{tuple(heat8_of(net_g[:b]).shape)}: "
+                        f"{int((i >= 0).sum())} peaks, indices equal")
+                pk = peaks_of(*smooth_nms_topk_raw(
+                    heat8_of(net_g[:b]).contiguous(), 4, 4, 32, 0.05), b,
+                    up_w)
+                got = k3_pair(pk, net_g[:b, ..., 19:], up_h, up_w,
+                              f"{h8}x{w8} B={b} K=32")
+                check(bool(got.ok.any()), f"K3 at {h8}x{w8}: nothing ok")
+            heat_up = resize.resize_area(net_g[0, ..., :19], up_h,
+                                         up_w).contiguous()
+            got = smooth_nms(heat_up)
+            k2_compare(got, smooth_nms_plain(heat_up),
+                       f"{tuple(heat_up.shape)}")
+            log(f"K2 smooth_nms {tuple(heat_up.shape)}: bit for bit, "
+                f"{int((got > 0.05).sum())} values above 0.05 kept")
 
     with phase("3 main path"):
         imgs = render_frames(np.random.default_rng(7), 8, 368, 432)
@@ -532,6 +620,12 @@ def main() -> int:
             for i, (g, w) in enumerate(zip(got, run(est_cpu))):
                 same_humans(g, w, f"{path} image {i}")
         log("humans equal the CPU estimator's (coords 1e-6, scores 1e-4)")
+        stats, _ = synthetic_e2e(est, 50, 432, 368)
+        log(f"AP on the card, mobilenet_thin (thin368_coco), 50 rendered "
+            f"432x368 scenes: AP50 {stats['AP50']:.4f} (gate 0.95), AP "
+            f"{stats['AP']:.4f}, mean deviation "
+            f"{stats['mean_px_deviation']:.3f} px")
+        check(stats["AP50"] >= 0.95, f"thin AP50 {stats['AP50']} < 0.95")
 
         frame = torch.from_numpy(frames[0])
         d = (downscale_area(frame.to(dev), 368, 432).cpu().int()
@@ -541,7 +635,130 @@ def main() -> int:
             f"{int((d > 0).sum())} of {d.numel()} values differ "
             f"({float((d > 0).float().mean()):.3g}), max |d| {int(d.max())}")
 
-    with phase("4 timing"):
+    def drive(path, run):
+        """Run one path with every launch count set to 0 just before it
+        and read just after; returns what the path returned."""
+        for fn in wrappers.values():
+            fn.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        path_launches[path] = {name: fn.launches
+                               for name, fn in wrappers.items()}
+        log(f"launches on {path}: {path_launches[path]}")
+        return out
+
+    def launched(path, *names):
+        for name in names:
+            check(path_launches[path][name] > 0,
+                  f"{path} never launched {name}")
+
+    with phase("4 backbones"):
+        v2 = {}
+        for name, wh in (("mobilenet_v2_small", (368, 368)),
+                         ("mobilenet_v2_large", (432, 368))):
+            kw = dict(target_size=wh, params_path=V2_CHECKPOINTS[name])
+            v2[name] = (TfPoseEstimator(name, **kw),
+                        TfPoseEstimator(name, device="cpu", **kw))
+        imgs368 = render_frames(np.random.default_rng(368), 8, 368, 368)
+        v2_paths = {
+            V2S_INF: ("mobilenet_v2_small", lambda e: [
+                e.inference(im, upsample_size=4.0) for im in imgs368],
+                ("smooth_nms",)),
+            V2S_BATCH: ("mobilenet_v2_small", lambda e: e.inference_batch(
+                imgs368, upsample_size=4.0),
+                ("smooth_nms_topk_raw", "score_candidates_raw")),
+            V2L_INF: ("mobilenet_v2_large", lambda e: [
+                e.inference(im, upsample_size=4.0) for im in imgs[:4]],
+                ("smooth_nms",)),
+        }
+        for path, (name, run, kernels_needed) in v2_paths.items():
+            card, cpu = v2[name]
+            got = drive(path, lambda: run(card))
+            launched(path, *kernels_needed)
+            log(f"humans per image, {path}: {[len(h) for h in got]}")
+            check(sum(len(h) for h in got) > 0, f"{path}: no humans found")
+            for i, (g, w) in enumerate(zip(got, run(cpu))):
+                same_humans(g, w, f"{path} image {i}")
+        log("v2 humans equal the CPU estimator's (coords 1e-6, scores 1e-4)")
+        for name, n, gate in (("mobilenet_v2_small", 50, 0.90),
+                              ("mobilenet_v2_large", 25, 0.88)):
+            stats, _ = synthetic_e2e(v2[name][0], n, 160, 160)
+            ckpt = os.path.basename(os.path.dirname(V2_CHECKPOINTS[name]))
+            log(f"AP on the card, {name} ({ckpt}), {n} rendered 160x160 "
+                f"scenes: AP50 {stats['AP50']:.4f} "
+                f"(gate {gate}), AP {stats['AP']:.4f}, mean deviation "
+                f"{stats['mean_px_deviation']:.3f} px")
+            check(stats["AP50"] >= gate, f"{name} AP50 {stats['AP50']} < "
+                  f"{gate}")
+
+        check(not os.path.exists(get_checkpoint_path("cmu")),
+              "a cmu checkpoint would replace the seeded random weights")
+        frames656 = render_frames(np.random.default_rng(656), 16, 368, 656)
+        t = time.perf_counter()
+        est_cmu = TfPoseEstimator("cmu", target_size=(656, 368))
+        cpu_cmu = TfPoseEstimator("cmu", target_size=(656, 368),
+                                  device="cpu")
+        log(f"cmu estimators (seeded random weights) in "
+            f"{time.perf_counter() - t:.2f} s")
+        got1 = drive(CMU_INF, lambda: est_cmu.inference(
+            frames656[0], upsample_size=4.0))
+        launched(CMU_INF, "smooth_nms")
+        got16 = drive(CMU_BATCH, lambda: est_cmu.inference_batch(
+            frames656, upsample_size=4.0))
+        launched(CMU_BATCH, "smooth_nms_topk_raw", "score_candidates_raw")
+        log(f"humans with random weights: {len(got1)} ({CMU_INF}), "
+            f"{[len(h) for h in got16]} ({CMU_BATCH})")
+
+        cmu_w, cmu_h = est_cmu.target_size
+        with torch.inference_mode():
+            maps = est_cmu._forward(np.stack(frames656), cmu_h, cmu_w)
+            t = time.perf_counter()
+            maps_cpu = cpu_cmu._forward(np.stack(frames656[:2]), cmu_h, cmu_w)
+        scale = maps_cpu.abs().max().item()
+        d = (maps[:2].cpu() - maps_cpu).abs().max().item()
+        log(f"cmu concat_stage7 {tuple(maps.shape)} on the card vs the CPU "
+            f"forward ({time.perf_counter() - t:.2f} s) of 2 frames: max "
+            f"|d| {d:.3g}, {d / scale:.3g} of max |map| {scale:.3g} "
+            f"(tolerance 1e-4 of it)")
+        check(scale > 0 and d <= 1e-4 * scale, "cmu maps differ")
+        x = heat8_of(maps).contiguous()
+        for k in (32, 128):
+            s, i = k1_pair(x, k)
+        log(f"K1 on the card's cmu maps {tuple(x.shape)}: "
+            f"{int((i >= 0).sum())} peaks at K=128, equal to the plain "
+            f"version and bit for bit to its phase arithmetic")
+        b, up_h, up_w = len(maps), 4 * maps.shape[1], 4 * maps.shape[2]
+        heat_up = resize.resize_area(maps[0, ..., :19], up_h,
+                                     up_w).contiguous()
+        k2_compare(smooth_nms(heat_up), smooth_nms_plain(heat_up),
+                   "the card's cmu map")
+        log(f"K2 on the card's cmu map {tuple(heat_up.shape)}: bit for bit")
+        k3_pair(peaks_of(*smooth_nms_topk_raw(x, 4, 4, 32, 0.05), b, up_w),
+                maps[..., 19:], up_h, up_w, f"the card's cmu maps B={b} K=32")
+
+        def decode_rendered(net_g):
+            up = (184, 328)
+            peaks_map, _, paf_up = postprocess(net_g[0], *up, params)
+            one = decode_maps(peaks_map, paf_up, params)
+            return (humans_of(decode_batch(net_g[:1], *up, params))
+                    + humans_of(decode_batch(net_g, *up, params))
+                    + humans_of(type(one)(*(t[None] for t in one))))
+
+        net82 = grid_nets[(46, 82)]
+        got = drive(CMU_MAPS, lambda: decode_rendered(net82))
+        launched(CMU_MAPS, "smooth_nms_topk_raw", "smooth_nms",
+                 "score_candidates_raw")
+        log(f"humans per map, {CMU_MAPS}: {[len(h) for h in got]}")
+        check(sum(len(h) for h in got) > 0, f"{CMU_MAPS}: no humans found")
+        for i, (g, w) in enumerate(zip(got, decode_rendered(net82.cpu()))):
+            same_humans(g, w, f"{CMU_MAPS} result {i}")
+        log("cmu-grid humans equal the CPU decode's (coords 1e-6, scores "
+            "1e-4)")
+        launches = {name: sum(n[name] for n in path_launches.values())
+                    for name in wrappers}
+        log(f"launch counts over every path: {launches}")
+
+    with phase("5 timing"):
         tag = f"[{smi}]"
         heat_up = resize.resize_area(nets[0, ..., :19], 184, 216).contiguous()
         # bytes and operations of this run's inputs
@@ -549,11 +766,12 @@ def main() -> int:
         nv, nh = wv.shape[1], wh.shape[1]
 
         def k1_cost(x):
-            c1 = x.shape[2]
+            h8, w8, c1 = x.shape
+            up_h, up_w = 4 * h8, 4 * w8
             return (x.numel() * 4 + (wv.numel() + wh.numel()) * 4
                     + c1 * 32 * 8,
-                    c1 * (184 * (54 + nh - 1) * 2 * nv + 184 * 216 * 2 * nh
-                          + 184 * 216 * 8))
+                    c1 * (up_h * (w8 + nh - 1) * 2 * nv + up_h * up_w * 2 * nh
+                          + up_h * up_w * 8))
 
         def k4_cost(x):
             return (x.numel() * 4 + x.shape[2] * 32 * 8,
@@ -594,7 +812,8 @@ def main() -> int:
                 368, 432)
         x4 = planes_up(merged[None], 360, 640)
         x25 = planes_up(nets, 115, 135)
-        x1b8, x1b1 = heat8_of(8).contiguous(), heat8_of(1).contiguous()
+        x1b8 = heat8_of(nets).contiguous()
+        x1b1 = heat8_of(nets[:1]).contiguous()
         pk1 = peaks_of(*smooth_nms_topk_raw(x1b1, 4, 4, 32, 0.05), 1, 216)
         pk8 = peaks_of(*smooth_nms_topk_raw(x1b8, 4, 4, 32, 0.05), 8, 216)
         pk4 = peaks_of(*smooth_nms_topk(x4, 32, 0.05), 1, 640)
@@ -603,6 +822,32 @@ def main() -> int:
 
         def k3(pk, paf, up_h, up_w, fn):
             return lambda: fn(pk, paf, up_h, up_w, params)
+
+        # the new grids: rendered CMU (46x82, B=16) and v2small (46x46,
+        # B=8) maps
+        new_cases = []
+        for (h8, w8), net_g in grid_nets.items():
+            b, up_h, up_w = len(net_g), 4 * h8, 4 * w8
+            what = {82: "cmu", 46: "v2small"}[w8]
+            xg = heat8_of(net_g).contiguous()
+            hg = resize.resize_area(net_g[0, ..., :19], up_h,
+                                    up_w).contiguous()
+            pkg = peaks_of(*smooth_nms_topk_raw(xg, 4, 4, 32, 0.05), b, up_w)
+            pafg = net_g[..., 19:]
+            new_cases += [
+                ("smooth_nms_topk_raw", f"{what} B={b} {tuple(xg.shape)} 4x "
+                 "K=32",
+                 lambda xg=xg: smooth_nms_topk_raw(xg, 4, 4, 32, 0.05),
+                 lambda xg=xg: smooth_nms_topk_raw_plain(xg, 4, 4, 32, 0.05),
+                 k1_cost(xg)),
+                ("smooth_nms", f"{what} {tuple(hg.shape)}",
+                 lambda hg=hg: smooth_nms(hg),
+                 lambda hg=hg: smooth_nms_plain(hg), k2_cost(hg)),
+                ("score_candidates_raw", f"{what} B={b} ({h8}, {w8}) 4x K=32",
+                 k3(pkg, pafg, up_h, up_w, score_candidates_raw),
+                 k3(pkg, pafg, up_h, up_w, score_candidates_raw_plain),
+                 k3_cost(pkg, pafg, up_h, up_w)),
+            ]
 
         # (kernel, shape, kernel call, plain call, (bytes, ops)); a
         # kernel's first case is the one its JSON entry reports
@@ -636,7 +881,7 @@ def main() -> int:
             ("smooth_nms_topk", f"{tuple(x25.shape)} K=32",
              lambda: smooth_nms_topk(x25, 32, 0.05),
              lambda: smooth_nms_topk_plain(x25, 32, 0.05), k4_cost(x25)),
-        ]
+        ] + new_cases
         sources = {
             "smooth_nms_topk_raw": ("tfpose_tpu_torch/csrc/smooth_nms_topk_raw.cu",
                                     "tfpose_tpu/ops/pallas/smooth_nms.py:371"),
@@ -683,13 +928,29 @@ def main() -> int:
                 kernels[name] = {
                     "name": name, "route": "cuda", "source": sources[name][0],
                     "replaces": sources[name][1], "launches": launches[name],
+                    "launches_by_path": {path: n[name] for path, n in
+                                         path_launches.items()},
                     "max_abs_err": err[name], "ms": med, "plain_ms": pmed,
                     "bound_ms": bms, "bound_by": by, "library_ms": None,
                     "cases": []}
             kernels[name]["cases"].append(case)
         kernels = list(kernels.values())
 
-        for what, fn in (
+        v2s, v2l = v2["mobilenet_v2_small"][0], v2["mobilenet_v2_large"][0]
+        # (what, call, images per call) of the backbones of phase 4
+        backbone_calls = [
+            ("mobilenet_v2_small inference (1 image, 368x368, upsample 4)",
+             lambda: v2s.inference(imgs368[0], upsample_size=4.0), 1),
+            ("mobilenet_v2_small inference_batch B=8 (368x368, upsample 4)",
+             lambda: v2s.inference_batch(imgs368, upsample_size=4.0), 8),
+            ("mobilenet_v2_large inference (1 image, 432x368, upsample 4)",
+             lambda: v2l.inference(imgs[0], upsample_size=4.0), 1),
+            ("cmu inference (1 image, 656x368, upsample 4)",
+             lambda: est_cmu.inference(frames656[0], upsample_size=4.0), 1),
+            ("cmu inference_batch B=16 (656x368, upsample 4)",
+             lambda: est_cmu.inference_batch(frames656, upsample_size=4.0),
+             16)]
+        for what, fn in [
                 ("inference", lambda: est.inference(imgs[0],
                                                     upsample_size=4.0)),
                 ("inference_batch B=8", lambda: est.inference_batch(
@@ -697,7 +958,8 @@ def main() -> int:
                 ("inference_windowed 1280x720", lambda: est.inference_windowed(
                     frames[0], upsample_size=4.0)),
                 ("inference_batch B=8 at 2.5x", lambda: est.inference_batch(
-                    imgs, upsample_size=2.5))):
+                    imgs, upsample_size=2.5))] + [
+                    c[:2] for c in backbone_calls]:
             wall, busy, nk, rows = profile_calls(fn)
             log(f"profile {what}: wall {wall:.3f} ms, device busy "
                 f"{busy:.3f} ms (idle {100 * (1 - busy / wall):.1f} %), "
@@ -730,6 +992,12 @@ def main() -> int:
             frames[0], upsample_size=4.0), 20)
         log(f"time inference_windowed (1280x720, 12 windows, upsample 4): "
             f"median {med * 1e3:.3f} ms p90 {p90 * 1e3:.3f} ms {tag}")
+        for what, fn, b in backbone_calls:
+            med, p90 = time_host(fn, 20 if b == 1 else 10)
+            rate = (f" = {b / med:.2f} img/s (median), {b / p90:.2f} img/s "
+                    f"(p90)" if b > 1 else "")
+            log(f"time {what}: median {med * 1e3:.3f} ms p90 "
+                f"{p90 * 1e3:.3f} ms{rate} {tag}")
         med, p90 = time_host(lambda: est.inference_multiscale(
             frames[0], scales=(1.0, 1.5), upsample_size=4.0), 10)
         log(f"time inference_multiscale (1280x720, scales 1.0 and 1.5: 12 + "

@@ -95,21 +95,34 @@ def _random_variables(path, seed):
     return fill(tree)
 
 
-@pytest.mark.parametrize("name,path", [("mobilenet_thin", _THIN368),
-                                       ("mobilenet", _V1FULL)])
+def _trained(name):
+    return os.path.join(_ROOT, "models", "trained", name, "params.msgpack")
+
+
+# flax leaf -> the port's state-dict suffix, stated independently
+_SUFFIX = {"kernel": "weight", "scale": "weight", "bias": "bias",
+           "mean": "running_mean", "var": "running_var"}
+
+
+@pytest.mark.parametrize("name,path", [
+    ("mobilenet_thin", _THIN368), ("mobilenet", _V1FULL),
+    ("mobilenet_v2_small", _trained("v2small160_coco")),
+    ("mobilenet_v2_large", _trained("v2large160_coco")),
+    ("cmu", _trained("cmu160_coco"))])
 def test_carry_over_covers_every_leaf(name, path):
+    """Every leaf of the committed checkpoint lands in its state-dict
+    entry, conv kernels HWIO -> OIHW (a depthwise (3,3,1,C) as (C,1,3,3)),
+    and every entry is filled: no missing or extra key."""
     variables = load_flax_msgpack(path)
     net = variables_from_numpy(get_network(name), variables)
     state = net.state_dict()
     n_leaves = sum(1 for _ in _leaves(variables))
     n_state = sum(1 for k in state if not k.endswith("num_batches_tracked"))
     assert n_leaves == n_state
-    k = variables["params"]["Conv2d_1"]["depthwise"]["kernel"]  # (3,3,1,C)
-    np.testing.assert_array_equal(
-        state["Conv2d_1.depthwise.weight"].numpy(), k.transpose(3, 2, 0, 1))
-    np.testing.assert_array_equal(
-        state["Conv2d_0.bn.running_var"].numpy(),
-        variables["batch_stats"]["Conv2d_0"]["bn"]["var"])
+    for path_, arr in _leaves(variables):
+        key = ".".join(path_[1:-1] + (_SUFFIX[path_[-1]],))
+        want = arr.transpose(3, 2, 0, 1) if path_[-1] == "kernel" else arr
+        np.testing.assert_array_equal(state[key].numpy(), want)
 
 
 def test_carry_over_raises_on_missing_or_extra_key():

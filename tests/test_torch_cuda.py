@@ -11,12 +11,14 @@ import pytest
 import torch
 
 from chip_smoke import (
+    heat8_of,
     k1_phase_reference,
     k2_compare,
     k3_compare,
     k4_compare,
     peaks_of,
     planes_up,
+    scene_nets,
 )
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.core.topology import pairs_array
@@ -168,3 +170,64 @@ def test_full_res_topk_kernel_other_blur_length(nets):
     for kernlen in (13, 4):
         k4_compare(smooth_nms_topk(x, 32, 0.05, kernlen=kernlen),
                    smooth_nms_topk_plain(x, 32, 0.05, kernlen))
+
+
+# the new backbones' grids: CMU at 656x368 (46x82, B=16) and
+# mobilenet_v2_small at 368x368 (46x46, B=8)
+_GRIDS = {(46, 82): [3, 1, 5, 0, 2, 6, 4, 2] * 2, (46, 46): [2, 1, 3, 0, 2,
+                                                            4, 1, 2]}
+
+
+@pytest.fixture(scope="module")
+def grid_nets(nets):
+    return {g: torch.from_numpy(scene_nets(sum(g), people, *g)).to(
+        nets.device) for g, people in _GRIDS.items()}
+
+
+@pytest.mark.parametrize("grid", sorted(_GRIDS))
+@pytest.mark.parametrize("k", [32, 128])
+def test_topk_raw_kernel_at_the_new_grids(grid_nets, grid, k):
+    """K1 at (46, 82, 288) and (46, 46, 144), and at B=1: bit for bit
+    against its phase arithmetic; against the plain version the same
+    peaks with scores rtol 1e-5. Here two peaks of one 46x46 plane lie
+    an ulp apart and take each other's place in the plain version's
+    order (it sums the upsampled blur in another order; the CPU shows the
+    same swap between the plain version and the phase arithmetic), so
+    the peaks are compared as sets."""
+    net = grid_nets[grid]
+    for b in (1, len(net)):
+        heat8 = heat8_of(net[:b]).contiguous()
+        s, i = smooth_nms_topk_raw(heat8, 4, 4, k, 0.05)
+        s1, i1 = k1_phase_reference(heat8, 4, 4, k, 0.05)
+        assert torch.equal(i, i1) and torch.equal(s, s1)
+        s0, i0 = smooth_nms_topk_raw_plain(heat8, 4, 4, k, 0.05)
+        i_sorted, order = i.sort(1)
+        i0_sorted, order0 = i0.sort(1)
+        assert torch.equal(i_sorted, i0_sorted) and bool((i >= 0).any())
+        torch.testing.assert_close(s.gather(1, order), s0.gather(1, order0),
+                                   rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("grid", sorted(_GRIDS))
+def test_smooth_nms_kernel_at_the_new_grids(grid_nets, grid):
+    """K2 at 184x328x19 (two waves of tiles) and 184x184x19, bit for bit."""
+    h8, w8 = grid
+    heat = resize.resize_area(grid_nets[grid][0, ..., :19], 4 * h8,
+                              4 * w8).contiguous()
+    k2_compare(smooth_nms(heat), smooth_nms_plain(heat), f"{heat.shape}")
+
+
+@pytest.mark.parametrize("grid", sorted(_GRIDS))
+def test_paf_sample_kernel_at_the_new_grids(grid_nets, grid):
+    """K3 at 46x82 B=16 and 46x46 B=8, with and without the row skip."""
+    h8, w8 = grid
+    net = grid_nets[grid]
+    b, up_h, up_w = len(net), 4 * h8, 4 * w8
+    pk = peaks_of(*smooth_nms_topk_raw(heat8_of(net).contiguous(), 4, 4, 32,
+                                       0.05), b, up_w)
+    params = DecodeParams()
+    for prefix_valid in (True, False):
+        args = (pk, net[..., 19:], up_h, up_w, params, prefix_valid)
+        got = score_candidates_raw(*args)
+        k3_compare(got, score_candidates_raw_plain(*args), f"{grid} B={b}")
+    assert bool(got.ok.any())

@@ -12,9 +12,10 @@ Entry points: ``inference`` (one image, also sets ``heatMat`` /
 ``pafMat``), ``inference_batch``, and for frames larger than the network
 ``inference_windowed`` / ``inference_multiscale`` (all windows of a
 scale in one backbone batch, maps merged on the device, one decode).
+``PoseEstimator.estimate_paf`` is the reference's host-side decode of
+given peaks and maps.
 
-Not ported yet (ROADMAP A12, A7): the int8 backbone and
-``PoseEstimator.estimate_paf``.
+Not ported yet (ROADMAP A12, A16): the int8 and bf16 backbones.
 """
 
 from __future__ import annotations
@@ -27,12 +28,13 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from tfpose_tpu_torch.compat import pafprocess
 from tfpose_tpu_torch.convert.checkpoint import (
     load_flax_msgpack,
     variables_from_numpy,
 )
 from tfpose_tpu_torch.core.config import DecodeParams
-from tfpose_tpu_torch.core.types import Human, PoseArrays
+from tfpose_tpu_torch.core.types import BodyPart, Human, PoseArrays
 from tfpose_tpu_torch.models import get_checkpoint_path, get_network
 from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.ops.assemble import Assembled
@@ -46,23 +48,61 @@ from tfpose_tpu_torch.pipeline.multiscale import (
     multiscale_forward,
     windowed_forward,
 )
-from tfpose_tpu_torch.pipeline.preprocess import normalize, prepare
+from tfpose_tpu_torch.pipeline.preprocess import (
+    normalize,
+    prepare,
+    prepare_bilinear,
+)
 from tfpose_tpu_torch.utils.draw import draw_humans as _draw_humans
 
 logger = logging.getLogger("TfPoseEstimator")
+
+
+class PoseEstimator:
+    """Reference ``PoseEstimator``: the static PAF decode bridge, through
+    the ``compat.pafprocess`` shim (the port's NumPy decoder) on the
+    host. The on-device decode (``ops/decode.py``) is the production
+    path; this exists for API parity and host-side cross-checking."""
+
+    @staticmethod
+    def estimate_paf(peaks: np.ndarray, heat_mat: np.ndarray,
+                     paf_mat: np.ndarray) -> List[Human]:
+        pafprocess.process_paf(peaks, heat_mat, paf_mat)
+        humans = []
+        for human_id in range(pafprocess.get_num_humans()):
+            human = Human()
+            for part_idx in range(18):
+                if pafprocess.get_part_cid(human_id, part_idx) < 0:
+                    continue
+                human.body_parts[part_idx] = BodyPart(
+                    "%d-%d" % (human_id, part_idx), part_idx,
+                    float(pafprocess.get_part_x(human_id, part_idx))
+                    / heat_mat.shape[1],
+                    float(pafprocess.get_part_y(human_id, part_idx))
+                    / heat_mat.shape[0],
+                    pafprocess.get_part_score(human_id, part_idx))
+            if human.body_parts:
+                human.score = pafprocess.get_score(human_id)
+                humans.append(human)
+        return humans
 
 
 class TfPoseEstimator:
     """Drop-in equivalent of the reference estimator.
 
     Args:
-      model: 'mobilenet_thin' or 'mobilenet' (other backbones are not
-        ported yet).
+      model: a registry name: 'mobilenet_thin', 'mobilenet',
+        'mobilenet_v2_large', 'mobilenet_v2_small', 'cmu' (or 'vgg').
       target_size: (w, h) network input size.
       decode_params: static decode thresholds/caps.
       params_path: flax msgpack checkpoint; without one the network runs
         with seeded random weights.
       warmup: run the reference's warm-up (full / half / quarter size).
+      device_preprocess: ``inference`` resizes an image that is not at
+        the target size by a half-pixel bilinear resize on the device,
+        as the JAX estimator's option does, in place of the default
+        resize equal to cv2's ``INTER_AREA``; ``inference_batch`` keeps
+        the default, as in the JAX estimator.
       device: torch device; ``None`` means ``"cuda"``.
     """
 
@@ -71,6 +111,7 @@ class TfPoseEstimator:
                  decode_params: DecodeParams = DecodeParams(),
                  params_path: Optional[str] = None,
                  warmup: bool = False,
+                 device_preprocess: bool = False,
                  device: Optional[str] = None):
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -78,6 +119,7 @@ class TfPoseEstimator:
                 "TfPoseEstimator runs on a CUDA card by default and none is "
                 "available; pass device='cpu' to run on the CPU")
         self.model_name = model
+        self.device_preprocess = device_preprocess
         self.target_size = target_size
         self.decode_params = decode_params
         self.net = get_network(model)
@@ -117,11 +159,13 @@ class TfPoseEstimator:
                 deterministic=cudnn.deterministic, allow_tf32=False):
             return self.net(x)["concat_stage7"].float()
 
-    def _forward(self, imgs: np.ndarray, net_h: int, net_w: int
-                 ) -> torch.Tensor:
-        """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, 57) fp32."""
+    def _forward(self, imgs: np.ndarray, net_h: int, net_w: int,
+                 bilinear: bool = False) -> torch.Tensor:
+        """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, 57) fp32;
+        ``bilinear`` resizes as :func:`prepare_bilinear` does."""
         x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
-        return self._backbone(prepare(x, net_h, net_w))
+        resize = prepare_bilinear if bilinear else prepare
+        return self._backbone(resize(x, net_h, net_w))
 
     def _forward_windows(self, wins: torch.Tensor) -> torch.Tensor:
         """Windows (N, h, w, 3), uint8 or unrounded float, -> their
@@ -194,7 +238,8 @@ class TfPoseEstimator:
         ``upsample_size`` is the decode-resolution ratio relative to the
         stride-8 feature map (reference ``resize_out_ratio``). An image
         not at the target size is resized on the device when
-        ``resize_to_default`` is set (see :func:`prepare`).
+        ``resize_to_default`` is set (see :func:`prepare`, or
+        :func:`prepare_bilinear` with ``device_preprocess``).
         """
         if npimg is None:
             raise Exception(
@@ -207,7 +252,8 @@ class TfPoseEstimator:
         up_w = int(net_w / 8 * upsample_size)
 
         t = time.time()
-        net_out = self._forward(npimg[None], net_h, net_w)[0]
+        net_out = self._forward(npimg[None], net_h, net_w,
+                                self.device_preprocess)[0]
         peaks_map, heat_up, paf_up = postprocess(
             net_out, up_h, up_w, self.decode_params)
         arrays = self._decode_escalating(

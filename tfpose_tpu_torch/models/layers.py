@@ -1,9 +1,9 @@
 """Building blocks for the pose backbones, as ``nn.Module``s.
 
 Port of ``tfpose_tpu/models/layers.py`` (the reference layer DSL
-``convb``, ``separable_conv``, ``max_pool``). Modules take and return
-NCHW tensors; submodule names (``conv``/``bn``, ``depthwise``/``dw_bn``/
-``pointwise``/``pw_bn``, ``L{1,2}_{1..5}``) are the flax names, so a
+``conv``, ``convb``, ``separable_conv``, ``max_pool``). Modules take and
+return NCHW tensors; submodule names (``conv``/``bn``, ``depthwise``/
+``dw_bn``/``pointwise``/``pw_bn``, ``L{1,2}_{1..5}``) are the flax names, so a
 flax variables tree maps onto the state dict one to one
 (``convert/checkpoint.py``).
 
@@ -17,7 +17,7 @@ Two numerical details are kept from flax:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,16 +44,51 @@ def pad_same(x: torch.Tensor, kernel: Tuple[int, int],
 
 
 class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with TF ``SAME`` padding applied per input size."""
+    """``nn.Conv2d`` with TF ``SAME`` padding applied per input size:
+    symmetric padding (stride 1, odd kernel) by the convolution itself,
+    without a padded copy of the input; otherwise an explicit pad."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = pad_same(x, self.kernel_size, self.stride)
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0,
+        top, bottom = same_pads(x.shape[-2], self.kernel_size[0],
+                                self.stride[0])
+        left, right = same_pads(x.shape[-1], self.kernel_size[1],
+                                self.stride[1])
+        pad = (top, left)
+        if top != bottom or left != right:
+            x = F.pad(x, (left, right, top, bottom))
+            pad = 0
+        return F.conv2d(x, self.weight, self.bias, self.stride, pad,
                         self.dilation, self.groups)
 
 
-def _bn(features: int) -> nn.BatchNorm2d:
+def batch_norm(features: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(features, eps=BN_EPS, momentum=BN_MOMENTUM)
+
+
+def make_divisible(v: float, divisor: int = 8,
+                   min_value: Optional[int] = None) -> int:
+    """Channel rounding used by the slim MobileNet defs."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+class Conv(nn.Module):
+    """plain conv + bias + (optional) ReLU — reference ``conv``."""
+
+    def __init__(self, in_ch: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3),
+                 strides: Tuple[int, int] = (1, 1), relu: bool = True):
+        super().__init__()
+        self.conv = SameConv2d(in_ch, features, kernel, strides, bias=True)
+        self.relu = relu
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        return F.relu(x) if self.relu else x
 
 
 class ConvBN(nn.Module):
@@ -64,7 +99,7 @@ class ConvBN(nn.Module):
                  strides: Tuple[int, int] = (1, 1), relu: bool = True):
         super().__init__()
         self.conv = SameConv2d(in_ch, features, kernel, strides, bias=False)
-        self.bn = _bn(features)
+        self.bn = batch_norm(features)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -82,15 +117,20 @@ class SeparableConv(nn.Module):
         super().__init__()
         self.depthwise = SameConv2d(in_ch, in_ch, kernel, strides,
                                     groups=in_ch, bias=False)
-        self.dw_bn = _bn(in_ch)
+        self.dw_bn = batch_norm(in_ch)
         self.pointwise = nn.Conv2d(in_ch, features, 1, bias=False)
-        self.pw_bn = _bn(features)
+        self.pw_bn = batch_norm(features)
         self.relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.dw_bn(self.depthwise(x)))
         x = self.pw_bn(self.pointwise(x))
         return F.relu(x) if self.relu else x
+
+
+def nhwc(t: torch.Tensor) -> torch.Tensor:
+    """(N, C, H, W) -> (N, H, W, C) view."""
+    return t.permute(0, 2, 3, 1)
 
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2

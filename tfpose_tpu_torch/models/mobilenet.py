@@ -24,15 +24,12 @@ from tfpose_tpu_torch.models.layers import (
     CPMStage,
     SeparableConv,
     max_pool,
+    nhwc,
 )
 
 _MIN_DEPTH = 8
 _SPEC = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
          (512, 1), (512, 1), (512, 1), (512, 1), (512, 1), (512, 1)]
-
-
-def _nhwc(t: torch.Tensor) -> torch.Tensor:
-    return t.permute(0, 2, 3, 1)
 
 
 class MobilenetNetwork(nn.Module):
@@ -78,5 +75,5 @@ class MobilenetNetwork(nn.Module):
             paf, heat = getattr(self, f"MConv_Stage{s}")(h)
             stages.append((paf, heat))
         out = torch.cat([heat, paf], 1)
-        return {"concat_stage7": _nhwc(out),
-                "stages": [(_nhwc(p), _nhwc(q)) for p, q in stages]}
+        return {"concat_stage7": nhwc(out),
+                "stages": [(nhwc(p), nhwc(q)) for p, q in stages]}

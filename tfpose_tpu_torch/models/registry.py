@@ -7,7 +7,11 @@ from __future__ import annotations
 import os
 from typing import Tuple
 
+from torch import nn
+
+from tfpose_tpu_torch.models.cmu import CmuNetwork
 from tfpose_tpu_torch.models.mobilenet import MobilenetNetwork
+from tfpose_tpu_torch.models.mobilenet_v2 import MobilenetV2Network
 
 MODEL_NAMES = (
     "cmu",
@@ -17,26 +21,23 @@ MODEL_NAMES = (
     "mobilenet_v2_small",
 )
 
-# backbones not ported yet -> the ROADMAP item that ports them
-_NOT_PORTED = {
-    "cmu": "A9", "vgg": "A9",
-    "mobilenet_v2_large": "A8", "mobilenet_v2_small": "A8",
-}
-
 _DEFAULT_MODEL_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "models")
 
 
-def get_network(name: str) -> MobilenetNetwork:
-    """Instantiate a backbone (fp32) by reference model name."""
+def get_network(name: str) -> nn.Module:
+    """Instantiate a backbone (fp32) by reference model name ("vgg" is
+    an alias of "cmu")."""
+    if name in ("cmu", "vgg"):
+        return CmuNetwork()
     if name == "mobilenet":
         return MobilenetNetwork(conv_width=1.0, conv_width2=1.0)
     if name == "mobilenet_thin":
         return MobilenetNetwork(conv_width=0.75, conv_width2=0.50)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP item "
-            f"{_NOT_PORTED[name]})")
+    if name == "mobilenet_v2_large":
+        return MobilenetV2Network(conv_width=1.4, refine_width=1.0)
+    if name == "mobilenet_v2_small":
+        return MobilenetV2Network(conv_width=0.50, refine_width=0.50)
     raise ValueError(
         f"unknown model {name!r}; known: {', '.join(MODEL_NAMES)}")
 

@@ -5,7 +5,11 @@ from __future__ import annotations
 
 import torch
 
-from tfpose_tpu_torch.ops.resize import resize_area, resize_area_u8
+from tfpose_tpu_torch.ops.resize import (
+    resize_area,
+    resize_area_u8,
+    resize_bilinear,
+)
 
 
 def normalize(img: torch.Tensor) -> torch.Tensor:
@@ -38,3 +42,15 @@ def prepare(img: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     if h >= target_h and w >= target_w:
         return normalize(downscale_area(img, target_h, target_w))
     return normalize(resize_area_u8(img, target_h, target_w))
+
+
+def prepare_bilinear(img: torch.Tensor, target_h: int,
+                     target_w: int) -> torch.Tensor:
+    """uint8 (..., H, W, 3) -> normalized float (..., target_h, target_w, 3)
+    by a half-pixel bilinear resize of the normalized image on the
+    tensor's device: the JAX package's ``prepare`` (its estimator's
+    ``device_preprocess`` path), not cv2's numerics."""
+    x = normalize(img)
+    if x.shape[-3] != target_h or x.shape[-2] != target_w:
+        x = resize_bilinear(x, target_h, target_w)
+    return x
