@@ -55,7 +55,25 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      at upsample 2.5, and ``inference_windowed`` / ``inference_multiscale``
      latency on 1280x720 frames; ``torch.profiler`` breakdowns; and for
      the backbones of phase 4: latency (median, p90), images per second
-     of the batches, and their profiles; K1-K3 at the new grids.
+     of the batches, and their profiles; K1-K3 at the new grids;
+  6. serving, path by path with the launch counts reset before each:
+     ``VideoPipeline`` (thin368_coco) on 24 rendered 640x480 frames at
+     depths 1, 2 and 3 (forwards on their own CUDA stream), its humans
+     bit for bit those of the serial loop (``video_serial``) and equal
+     to the CPU's on the card's resized frames, with frames/s and the
+     device's idle share; ``DynamicBatcher`` with 8 futures in one flush
+     (histogram {8: 1}), humans equal to ``inference_batch``'s;
+     ``PoseService`` on 127.0.0.1 at ``max_batch`` 1 and 8, raw frames
+     through ``PoseClient.infer_raw``, replies equal to ``humans_to_msg``
+     of the estimator's humans, round-trip median and p90;
+     ``BatchedEvaluator`` with thin368_coco at batch 8 on 50 rendered
+     432x368 scenes in fp32 and bf16, AP50 at least 0.95 each;
+  7. bf16: thin368_coco and CMU (seeded) ``concat_stage7`` against fp32
+     (thin: 99th percentile of |d| within 5 % and max within 35 % of the
+     largest value; CMU: max within 5 %); thin ``inference`` x8 and
+     ``inference_batch`` B=8 and CMU B=16 in bf16 through the kernels,
+     the thin humans reported against fp32's; their times in turns with
+     fp32's and one profile each.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 The last lines are the kernels driven, one JSON line per the kernels'
@@ -328,6 +346,61 @@ def render_frames(rng, n, h, w):
             template=synthetic.SPREAD_TEMPLATE)
         out.append(synthetic.render_image(people, h, w, rng))
     return out
+
+
+def video_serial(est, frames, upsample_size: float = 4.0):
+    """The serial loop that ``VideoPipeline`` must equal bit for bit:
+    each frame's forward, then its decode without escalation, on the
+    current stream, one frame after the other."""
+    from tfpose_tpu_torch.ops.assemble import Assembled
+    from tfpose_tpu_torch.ops.decode import decode
+
+    w, h = est.target_size
+    out = []
+    for frame in frames:
+        net = est._forward(frame[None], h, w)[0]
+        res = decode(net, int(h / 8 * upsample_size),
+                     int(w / 8 * upsample_size), est.decode_params)
+        out.append(est._humans(Assembled(*(t.cpu().numpy() for t in res))))
+    return out
+
+
+def rendered_coco(n, w, h, seed=7):
+    """``synthetic_e2e``'s scenes as ``BatchedEvaluator.evaluate`` takes
+    them: ([(image_id, image, (w, h)), ...], COCO ground truth by id)."""
+    import numpy as np
+
+    from tfpose_tpu_torch.evaluation.coco_eval import person_to_gt
+    from tfpose_tpu_torch.utils import synthetic
+
+    rng = np.random.default_rng(seed)
+    items, gts = [], {}
+    for idx in range(n):
+        people = synthetic.random_people(
+            rng, int(rng.integers(1, 3)), h, w, separated=True,
+            template=synthetic.SPREAD_TEMPLATE)
+        items.append((idx, synthetic.render_image(people, h, w, rng),
+                      (w, h)))
+        gts[idx] = [person_to_gt(p) for p in people]
+    return items, gts
+
+
+def same_persons(got, want, what: str) -> None:
+    """Equal ``Persons`` except the stamp: part ids exact, x and y within
+    1e-6, confidences within 1e-4."""
+    check((got.image_w, got.image_h) == (want.image_w, want.image_h),
+          f"{what}: image size")
+    g = [[(b.part_id, b.x, b.y, b.confidence) for b in p.body_part]
+         for p in got.persons]
+    w = [[(b.part_id, b.x, b.y, b.confidence) for b in p.body_part]
+         for p in want.persons]
+    check([[b[0] for b in p] for p in g] == [[b[0] for b in p] for p in w],
+          f"{what}: part ids differ")
+    for pg, pw in zip(g, w):
+        for bg, bw in zip(pg, pw):
+            check(abs(bg[1] - bw[1]) <= 1e-6 and abs(bg[2] - bw[2]) <= 1e-6
+                  and abs(bg[3] - bw[3]) <= 1e-4,
+                  f"{what}: part {bg[0]} {bg[1:]} vs {bw[1:]}")
 
 
 def humans_key(humans):
@@ -1003,6 +1076,203 @@ def main() -> int:
         log(f"time inference_multiscale (1280x720, scales 1.0 and 1.5: 12 + "
             f"24 windows, upsample 4): median {med * 1e3:.3f} ms p90 "
             f"{p90 * 1e3:.3f} ms {tag}")
+
+    from tfpose_tpu_torch.evaluation.coco_eval import evaluate_oks_ap
+    from tfpose_tpu_torch.evaluation.sweep import BatchedEvaluator
+    from tfpose_tpu_torch.pipeline.preprocess import resize_u8
+    from tfpose_tpu_torch.pipeline.video import VideoPipeline
+    from tfpose_tpu_torch.serving import (
+        DynamicBatcher, PoseClient, PoseService, humans_to_msg)
+
+    with phase("6 serving"):
+        # VideoPipeline: thin368_coco on 24 rendered 640x480 frames
+        vframes = render_frames(np.random.default_rng(640), 24, 480, 640)
+        want = [humans_key(h) for h in video_serial(est, vframes)]
+        # the CPU decodes the card's resized frames: the card's area
+        # downscale may differ from the CPU's by a grey level (held in
+        # phase 3), which moves a score by more than the 1e-4 of the
+        # forward and decode
+        resized = [resize_u8(torch.from_numpy(f).to(dev), 368, 432).cpu()
+                   for f in vframes]
+        n_diff = sum(int((r != resize_u8(torch.from_numpy(f), 368, 432))
+                         .sum()) for r, f in zip(resized, vframes))
+        log(f"video frames resized 640x480 -> 432x368 on the card: {n_diff} "
+            f"of {24 * 368 * 432 * 3} values differ from the CPU's by a grey "
+            f"level")
+        cpu_want = video_serial(est_cpu, [r.numpy() for r in resized])
+        check(sum(len(h) for h in cpu_want) > 0, "video: no humans")
+        for depth in (1, 2, 3):
+            path = f"video_d{depth}"
+            pipe = VideoPipeline(est, upsample_size=4.0, depth=depth)
+            got = drive(path, lambda: [h for _, h in pipe.run(vframes)])
+            launched(path, "smooth_nms_topk_raw", "score_candidates_raw")
+            check([humans_key(h) for h in got] == want,
+                  f"{path}: humans differ from the serial loop's")
+            for i, (g, w) in enumerate(zip(got, cpu_want)):
+                same_humans(g, w, f"{path} frame {i}")
+            t = time.perf_counter()
+            for _ in pipe.run(vframes):
+                pass
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            wall, busy, nk, rows = profile_calls(
+                lambda: [None for _ in pipe.run(vframes[:8])], n=1)
+            log(f"time VideoPipeline depth {depth}: 24 frames of 640x480 in "
+                f"{secs * 1e3:.3f} ms = {24 / secs:.2f} frames/s | profile of "
+                f"8 frames: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                f"(idle {100 * (1 - busy / wall):.1f} %, kernel time summed "
+                f"over both streams), {nk:.0f} kernels [{smi}]")
+        log("video humans equal the serial loop's bit for bit at depths "
+            "1-3, and the CPU's on the card's resized frames (coords 1e-6, "
+            "scores 1e-4)")
+
+        # DynamicBatcher: 8 futures submitted before the first flush
+        batcher = DynamicBatcher(est, max_batch=8, max_wait_ms=2000.0,
+                                 upsample_size=4.0)
+        try:
+            got = drive("batcher", lambda: [
+                f.result(timeout=60) for f in
+                [batcher.submit(img) for img in imgs]])
+        finally:
+            batcher.stop()
+        launched("batcher", "smooth_nms_topk_raw", "score_candidates_raw")
+        check(batcher.batch_sizes == {8: 1},
+              f"batcher histogram {batcher.batch_sizes}, want {{8: 1}}")
+        for i, (g, w) in enumerate(zip(
+                got, results["inference_batch B=8 (4x)"])):
+            same_humans(g, w, f"batcher image {i}")
+        log(f"batcher: histogram {batcher.batch_sizes}, humans equal "
+            f"inference_batch's")
+
+        # PoseService on 127.0.0.1, raw frames at max_batch 1 and 8
+        for max_batch, ref in ((1, "inference x8 (4x)"),
+                               (8, "inference_batch B=8 (4x)")):
+            path = f"service_b{max_batch}"
+            svc = PoseService(est, port=0, upsample_size=4.0,
+                              max_batch=max_batch)
+            client = None
+            try:
+                client = PoseClient(*svc.start())
+                got = drive(path, lambda: [client.infer_raw(img)
+                                           for img in imgs])
+                ms = []
+                for img in imgs * 3:
+                    t = time.perf_counter()
+                    client.infer_raw(img)
+                    ms.append((time.perf_counter() - t) * 1e3)
+            finally:
+                if client is not None:
+                    client.close()
+                svc.stop()
+            launched(path, *(("smooth_nms",) if max_batch == 1 else
+                             ("smooth_nms_topk_raw", "score_candidates_raw")))
+            for i, (g, h) in enumerate(zip(got, results[ref])):
+                same_persons(g, humans_to_msg(h, 432, 368), f"{path} {i}")
+            log(f"time PoseService round trip, max_batch {max_batch} (432x368"
+                f" raw frames, one client, {len(ms)} requests): median "
+                f"{np.median(ms):.3f} ms p90 {np.percentile(ms, 90):.3f} ms "
+                f"[{smi}]; replies equal humans_to_msg of {ref}")
+
+        # BatchedEvaluator: thin368_coco, batch 8, 50 rendered scenes
+        items, gts = rendered_coco(50, 432, 368)
+        for dtype in ("float32", "bfloat16"):
+            path = f"sweep_{'fp32' if dtype == 'float32' else 'bf16'}"
+            ev = BatchedEvaluator("mobilenet_thin", (432, 368), batch_size=8,
+                                  dtype=dtype)
+            ev.load_params(CHECKPOINT)
+            t = time.perf_counter()
+            dets = drive(path, lambda: ev.evaluate(iter(items)))
+            secs = time.perf_counter() - t
+            launched(path, "smooth_nms_topk_raw", "score_candidates_raw")
+            stats = evaluate_oks_ap(gts, dets)
+            log(f"BatchedEvaluator {dtype} thin368_coco, 50 rendered 432x368 "
+                f"scenes in batches of 8: AP50 {stats['AP50']:.4f} (gate "
+                f"0.95), AP {stats['AP']:.4f}; {secs * 1e3:.1f} ms [{smi}]")
+            check(stats["AP50"] >= 0.95, f"{path} AP50 {stats['AP50']}")
+
+    with phase("7 bf16"):
+        est16 = TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
+                                params_path=CHECKPOINT, dtype="bfloat16")
+        cmu16 = TfPoseEstimator("cmu", target_size=(656, 368),
+                                dtype="bfloat16")
+        # maps against the fp32 maps of the same frames
+        with torch.inference_mode():
+            for what, e32, e16, frames_, h_, w_ in (
+                    ("thin (thin368_coco)", est, est16, imgs, 368, 432),
+                    ("cmu (seeded weights)", est_cmu, cmu16, frames656,
+                     368, 656)):
+                m32 = e32._forward(np.stack(frames_), h_, w_)
+                m16 = e16._forward(np.stack(frames_), h_, w_)
+                d = (m16 - m32).abs()
+                scale = m32.abs().max().item()
+                p99 = torch.quantile(d.flatten()[::7], 0.99).item()
+                log(f"bf16 {what} concat_stage7 {tuple(m16.shape)} vs fp32: "
+                    f"max |d| {d.max().item():.4g} = "
+                    f"{d.max().item() / scale:.4g} of max |map| "
+                    f"{scale:.4g}, 99th percentile {p99 / scale:.4g} of it")
+                if what.startswith("thin"):
+                    check(p99 <= 0.05 * scale and d.max() <= 0.35 * scale,
+                          "bf16 thin maps beyond 5 % (p99) / 35 % (max)")
+                else:
+                    check(d.max() <= 0.05 * scale, "bf16 cmu maps beyond 5 %")
+        bf16_paths = {
+            "bf16_thin_inference": (lambda: [
+                est16.inference(img, upsample_size=4.0) for img in imgs],
+                ("smooth_nms",)),
+            "bf16_thin_batch": (lambda: est16.inference_batch(
+                imgs, upsample_size=4.0),
+                ("smooth_nms_topk_raw", "score_candidates_raw")),
+            "bf16_cmu_batch": (lambda: cmu16.inference_batch(
+                frames656, upsample_size=4.0),
+                ("smooth_nms_topk_raw", "score_candidates_raw")),
+        }
+        got16 = {}
+        for path, (run, needed) in bf16_paths.items():
+            got16[path] = drive(path, run)
+            launched(path, *needed)
+        for path, ref in (("bf16_thin_inference", "inference x8 (4x)"),
+                          ("bf16_thin_batch", "inference_batch B=8 (4x)")):
+            pairs = list(zip(got16[path], results[ref]))
+            n_same = sum(humans_key(g) == humans_key(w) for g, w in pairs)
+            n_parts = sum(len(g) == len(w) and all(
+                a.body_parts.keys() == b.body_parts.keys()
+                for a, b in zip(g, w)) for g, w in pairs)
+            log(f"{path}: humans {[len(h) for h in got16[path]]} (fp32 "
+                f"{[len(h) for h in results[ref]]}); {n_same} of "
+                f"{len(pairs)} scenes equal to fp32's, {n_parts} with the "
+                f"same part sets")
+        for what, f32, f16, b in (
+                ("thin inference (1 image, 432x368, upsample 4)",
+                 lambda: est.inference(imgs[0], upsample_size=4.0),
+                 lambda: est16.inference(imgs[0], upsample_size=4.0), 1),
+                ("thin inference_batch B=8 (432x368, upsample 4)",
+                 lambda: est.inference_batch(imgs, upsample_size=4.0),
+                 lambda: est16.inference_batch(imgs, upsample_size=4.0), 8),
+                ("cmu inference_batch B=16 (656x368, upsample 4)",
+                 lambda: est_cmu.inference_batch(frames656,
+                                                 upsample_size=4.0),
+                 lambda: cmu16.inference_batch(frames656, upsample_size=4.0),
+                 16)):
+            line = []
+            for dt, fn in (("fp32", f32), ("bf16", f16), ("fp32", f32),
+                           ("bf16", f16)):
+                med, p90 = time_host(fn, 10)
+                line.append(f"{dt} median {med * 1e3:.3f} ms p90 "
+                            f"{p90 * 1e3:.3f} ms ({b / med:.2f} img/s)")
+            log(f"time {what}, in turns: {' | '.join(line)} [{smi}]")
+            wall, busy, nk, rows = profile_calls(f16)
+            log(f"profile bf16 {what}: wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms (idle {100 * (1 - busy / wall):.1f} %), "
+                f"{nk:.0f} kernel launches per call [{smi}]")
+            for key, ms, cnt in rows[:6]:
+                log(f"  {ms:.4f} ms  x{cnt:.0f}  {key[:90]}")
+
+    # every path's launches, the serving and bf16 paths included
+    for entry in kernels:
+        name = entry["name"]
+        entry["launches_by_path"] = {path: n[name] for path, n in
+                                     path_launches.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
 
     print("kernels: " + ", ".join(wrappers), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,13 @@
 """Port parity of the estimator's remaining API against the JAX package:
 COCO keypoint evaluation, ``PoseEstimator.estimate_paf`` with its
 ``compat.pafprocess`` shim and NumPy decoder, ``runner.get_estimator`` /
-``infer``, and the estimator's ``device_preprocess`` resize."""
+``infer``, the estimator's ``device_preprocess`` resize, the batched
+evaluation sweep (``evaluation/sweep.py``), the image loader and the
+CLIs (``cli/``)."""
 
+import importlib.util
 import os
+import sys
 
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +21,7 @@ from tfpose_tpu.core.types import BodyPart as JaxBodyPart
 from tfpose_tpu.core.types import Human as JaxHuman
 from tfpose_tpu.estimator import PoseEstimator as JaxPoseEstimator
 from tfpose_tpu.estimator import TfPoseEstimator as JaxEstimator
+from tfpose_tpu.evaluation.sweep import BatchedEvaluator as JaxEvaluator
 from tfpose_tpu.evaluation import coco_eval as jax_coco
 from tfpose_tpu.oracle import numpy_decoder as jax_decoder
 from tfpose_tpu.oracle import numpy_post
@@ -25,9 +30,14 @@ from tfpose_tpu.utils import synthetic as jax_synthetic
 from tfpose_tpu_torch.compat import pafprocess
 from tfpose_tpu_torch.core.types import BodyPart, Human
 from tfpose_tpu_torch.estimator import PoseEstimator, TfPoseEstimator
+from tfpose_tpu_torch.cli import eval as eval_cli
+from tfpose_tpu_torch.cli import run as run_cli
+from tfpose_tpu_torch.cli import run_video as run_video_cli
 from tfpose_tpu_torch.evaluation import coco_eval
+from tfpose_tpu_torch.evaluation.sweep import BatchedEvaluator
 from tfpose_tpu_torch.oracle import numpy_decoder
 from tfpose_tpu_torch.pipeline.preprocess import prepare_bilinear
+from tfpose_tpu_torch.utils import imload
 from test_torch_estimator import _assert_same_humans, _scenes
 
 torch.set_num_threads(2)
@@ -250,3 +260,158 @@ def test_device_preprocess_humans_equal_jax():
         est.inference(img, upsample_size=4.0)
         est.device_preprocess = True
         assert np.abs(est.heatMat - bilinear).max() > 1e-3
+
+
+# ---------------------------------------------------------------------------
+# the batched evaluation sweep
+# ---------------------------------------------------------------------------
+
+def _assert_same_detections(got, want):
+    """Same images and detections; keypoints within 1e-4 px (coords 1e-6
+    of 160), scores 1e-5."""
+    assert [d["image_id"] for d in got] == [d["image_id"] for d in want]
+    for g, w in zip(got, want):
+        assert g["category_id"] == w["category_id"]
+        np.testing.assert_allclose(g["keypoints"], w["keypoints"], rtol=0,
+                                   atol=1e-4)
+        assert abs(g["score"] - w["score"]) <= 1e-5
+
+
+def test_batched_evaluator_matches_jax_fp32():
+    """``run_batch`` and ``evaluate`` against the JAX evaluator in fp32,
+    both with the committed ``thin160_coco`` variables: a batch of 4 at
+    the network size, then 5 images of 320x320 in batches of 4 (halved
+    to the network, where the port's area resize equals cv2's; the tail
+    padded with zero images whose results are dropped)."""
+    jax_ev = JaxEvaluator("mobilenet_thin", (160, 160), batch_size=4,
+                          dtype="float32")
+    ev = BatchedEvaluator("mobilenet_thin", (160, 160), batch_size=4,
+                          dtype="float32", device="cpu")
+    jax_ev.load_params(_THIN160)
+    ev.load_params(_THIN160)
+    imgs = np.stack(_scenes(4, 160, 160, seed=13))
+    got = ev.run_batch(imgs)
+    assert sum(len(h) for h in got) >= 4
+    for g, w in zip(got, jax_ev.run_batch(imgs)):
+        _assert_same_humans(g, w)
+    np.testing.assert_array_equal(ev.last_peak_saturated,
+                                  jax_ev.last_peak_saturated)
+    big = _scenes(5, 320, 320, seed=14)
+    items = [(10 + i, img, (320, 320)) for i, img in enumerate(big)]
+    got, want = ev.evaluate(iter(items)), jax_ev.evaluate(iter(items))
+    assert {d["image_id"] for d in got} >= {10, 14}  # the tail image too
+    _assert_same_detections(got, want)
+
+
+def test_sweep_evaluates_each_model():
+    """``sweep`` on 3 rendered scenes with two backbones' seeded random
+    weights (bf16, the evaluator's default): AP stats per model."""
+    from tfpose_tpu_torch.evaluation.sweep import sweep
+
+    items, gts = [], {}
+    rng = np.random.default_rng(31)
+    for idx in range(3):
+        people = jax_synthetic.random_people(
+            rng, 1, 64, 64, separated=True,
+            template=jax_synthetic.SPREAD_TEMPLATE)
+        items.append((idx, jax_synthetic.render_image(people, 64, 64, rng),
+                      (64, 64)))
+        gts[idx] = [coco_eval.person_to_gt(p) for p in people]
+    out = sweep(["mobilenet_thin", "mobilenet_v2_small"], lambda: iter(items),
+                gts, target_size=(64, 64), batch_size=2, device="cpu")
+    assert set(out) == {"mobilenet_thin", "mobilenet_v2_small"}
+    for stats in out.values():
+        assert {"AP", "AP50"} <= set(stats)
+
+
+@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(spatial=True)])
+def test_batched_evaluator_rejects_mesh_and_spatial(kw):
+    with pytest.raises(ValueError, match="one card"):
+        BatchedEvaluator("mobilenet_thin", (64, 64), device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# image loading and the CLIs
+# ---------------------------------------------------------------------------
+
+def test_imload_without_cv2_raises(monkeypatch, tmp_path):
+    monkeypatch.setitem(sys.modules, "cv2", None)  # import fails
+    with pytest.raises(RuntimeError, match="cv2"):
+        imload.read_imgfile(str(tmp_path / "x.png"))
+
+
+def _jax_eval_main(argv):
+    spec = importlib.util.spec_from_file_location(
+        "eval_cli_jax", os.path.join(os.path.dirname(__file__), "..",
+                                     "eval.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(argv)
+
+
+@pytest.mark.parametrize("argv", [
+    ["--synthetic-e2e", "3", "--resize", "160x160", "--params", _THIN160],
+    ["--synthetic", "3"],
+])
+def test_eval_cli_matches_jax(argv):
+    """``eval --synthetic-e2e`` (the estimator on rendered scenes) and
+    ``eval --synthetic`` (the decode on rendered maps): the same stats
+    as the JAX ``eval.py``; AP exact, mean deviation 1e-5 px."""
+    want = _jax_eval_main(list(argv))
+    got = eval_cli.main(argv + ["--device", "cpu"])
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        assert got[k] == pytest.approx(v, rel=0, abs=1e-5), k
+    assert got["AP50"] > 0.5
+    with pytest.raises(SystemExit, match="AP50 gate"):
+        eval_cli.main(argv + ["--device", "cpu", "--assert-ap50", "1.01"])
+
+
+def test_eval_cli_quantize_is_not_ported():
+    with pytest.raises(NotImplementedError, match="A12"):
+        eval_cli.main(["--synthetic-e2e", "1", "--resize", "64x64",
+                       "--quantize", "--device", "cpu"])
+
+
+def test_run_cli_on_an_image_file(tmp_path, monkeypatch):
+    """``run`` on a PNG written with cv2, with ``thin160_coco`` as the
+    model directory's ``mobilenet_thin`` checkpoint: the estimator's
+    humans on the decoded image, and the annotated image written to
+    ``--output``."""
+    cv2 = pytest.importorskip("cv2")
+    ckpt_dir = tmp_path / "models" / "jax" / "mobilenet_thin"
+    ckpt_dir.mkdir(parents=True)
+    (ckpt_dir / "params.msgpack").symlink_to(os.path.abspath(_THIN160))
+    monkeypatch.setenv("TFPOSE_TPU_MODEL_DIR", str(tmp_path / "models"))
+    img = _scenes(1, 320, 320, seed=23)[0]
+    path, out = str(tmp_path / "scene.png"), str(tmp_path / "out.png")
+    assert cv2.imwrite(path, img)
+    humans = run_cli.main(["--image", path, "--resize", "160x160",
+                           "--output", out, "--device", "cpu"])
+    assert humans
+    est = TfPoseEstimator("mobilenet_thin", target_size=(160, 160),
+                          device="cpu")
+    _assert_same_humans(humans, est.inference(img, upsample_size=4.0))
+    drawn = cv2.imread(out)
+    assert drawn.shape == img.shape and (drawn != img).any()
+
+
+def test_run_video_cli_on_a_video_file(tmp_path):
+    """``run_video`` on a short MJPG video written with cv2: every frame
+    through the pipeline and into ``--output``."""
+    cv2 = pytest.importorskip("cv2")
+    path, out = str(tmp_path / "in.avi"), str(tmp_path / "out.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 10.0,
+                             (96, 80))
+    for img in _scenes(3, 80, 96, seed=29):
+        writer.write(img)
+    writer.release()
+    run_video_cli.main(["--video", path, "--model", "mobilenet_thin",
+                        "--resize", "96x80", "--output", out,
+                        "--device", "cpu", "--depth", "2"])
+    cap = cv2.VideoCapture(out)
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    assert n == 3

@@ -6,22 +6,32 @@ whose Python has no jax for ``tests/conftest.py``:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
 
 from chip_smoke import (
+    CHECKPOINT,
     heat8_of,
+    humans_key,
     k1_phase_reference,
     k2_compare,
     k3_compare,
     k4_compare,
     peaks_of,
     planes_up,
+    render_frames,
+    same_persons,
     scene_nets,
+    video_serial,
 )
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.core.topology import pairs_array
+from tfpose_tpu_torch.estimator import TfPoseEstimator
+from tfpose_tpu_torch.models import MODEL_NAMES, get_network
+from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.ops import resize
 from tfpose_tpu_torch.ops.kernels.paf_score import (
     score_candidates_raw,
@@ -231,3 +241,108 @@ def test_paf_sample_kernel_at_the_new_grids(grid_nets, grid):
         got = score_candidates_raw(*args)
         k3_compare(got, score_candidates_raw_plain(*args), f"{grid} B={b}")
     assert bool(got.ok.any())
+
+
+# ---- the serving side and the bf16 backbone on the card
+
+
+@pytest.fixture(scope="module")
+def thin368(nets):
+    return TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
+                           params_path=CHECKPOINT)
+
+
+def test_decode_is_deterministic_on_the_card(thin368):
+    """The same maps decoded three times give the same arrays bit for
+    bit. Before the assembly's score sums went through ``segment_sum``,
+    the atomic fp32 ``scatter_add`` gave human scores that differed in
+    the last bit between runs (2 of 12 frames of 640x480)."""
+    from tfpose_tpu_torch.ops.decode import decode_batch
+
+    frames = render_frames(np.random.default_rng(12), 16, 368, 432)
+    maps = thin368._forward(np.stack(frames), 368, 432)
+    runs = [decode_batch(maps, 184, 216, thin368.decode_params)
+            for _ in range(3)]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)
+    assert bool(runs[0].human_valid.any())
+
+
+def test_video_pipeline_streams_equal_the_serial_loop(thin368):
+    """Depth 3 on 64 rendered 640x480 frames: the forwards on their own
+    stream, the decodes on the current one; the humans equal the serial
+    loop's bit for bit."""
+    from tfpose_tpu_torch.pipeline.video import VideoPipeline
+
+    frames = render_frames(np.random.default_rng(64), 64, 480, 640)
+    got = [h for _, h in VideoPipeline(thin368, 4.0, 3).run(frames)]
+    want = video_serial(thin368, frames)
+    assert [humans_key(h) for h in got] == [humans_key(h) for h in want]
+    assert sum(len(h) for h in got) > 64
+
+
+def test_service_with_concurrent_clients_at_max_batch_8(thin368):
+    """Four client threads, eight requests each, at ``max_batch=8``:
+    every reply equals ``humans_to_msg`` of the serial estimator's
+    ``inference_batch`` humans for its frame (x, y 1e-6, confidence
+    1e-4)."""
+    from tfpose_tpu_torch.serving import (
+        PoseClient, PoseService, humans_to_msg)
+
+    imgs = render_frames(np.random.default_rng(4), 8, 368, 432)
+    want = [humans_to_msg(h, 432, 368)
+            for h in thin368.inference_batch(imgs, upsample_size=4.0)]
+    svc = PoseService(thin368, port=0, upsample_size=4.0, max_batch=8,
+                      max_wait_ms=20.0)
+    addr = svc.start()
+    replies, errors = {}, []
+
+    def client(t):
+        try:
+            c = PoseClient(*addr)
+            for i in range(8):
+                k = (t * 3 + i) % 8
+                replies[(t, i)] = (k, c.infer_raw(imgs[k]))
+            c.close()
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    try:
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        assert not any(th.is_alive() for th in threads)
+        assert not errors and len(replies) == 32
+        sizes = svc._batcher.batch_sizes
+        assert sum(k * v for k, v in sizes.items()) == 32
+    finally:
+        svc.stop()
+    for (t, i), (k, msg) in replies.items():
+        same_persons(msg, want[k], f"client {t} request {i}")
+
+
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_bf16_backbone_on_the_card_against_the_cpu(nets, name):
+    """Seeded random weights at 96x128 (CMU at 64x96), bf16 on the card
+    (cuDNN) against the port's bf16 forward on the CPU: within 3e-2 of
+    the largest fp32 map value. Each is within about 1e-2 of JAX's bf16
+    (tests/test_torch_bf16.py), bf16 noise of other summation orders."""
+    h, w = (64, 96) if name == "cmu" else (96, 128)
+    net = init_weights(get_network(name, torch.bfloat16),
+                       torch.Generator().manual_seed(3)).eval()
+    net32 = get_network(name).eval()
+    net32.load_state_dict(net.state_dict())
+    x = torch.from_numpy(np.random.default_rng(1).uniform(
+        -0.5, 0.5, (2, h, w, 3)).astype(np.float32))
+    with torch.no_grad():
+        cpu = net(x)["concat_stage7"].float()
+        ref32 = net32(x)["concat_stage7"]
+        card = net.cuda()(x.cuda())["concat_stage7"]
+    assert card.dtype == torch.bfloat16
+    scale = ref32.abs().max().item()
+    assert scale > 0
+    assert (card.float().cpu() - cpu).abs().max().item() <= 3e-2 * scale

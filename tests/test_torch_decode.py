@@ -131,3 +131,33 @@ def test_decode_at_4x_where_the_raw_grid_block_does_not_fit(monkeypatch):
     _assert_same(got, ref)
     assert calls == [(360, 640, 18)]
     assert int(got.human_valid.sum()) > 0
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_segment_sum_is_exact_and_order_independent(seed):
+    """The assembly's per-component score sums (``segment_sum``) equal
+    the exact sum rounded once to fp32, and a permutation of the terms
+    (the card's atomic adds take any order) changes no bit. A plain fp32
+    ``scatter_add`` fails this: its sum depends on the order of the
+    terms, which made the card's human scores differ in the last bit
+    from one decode of the same maps to the next."""
+    import math
+
+    from tfpose_tpu_torch.ops.assemble import segment_sum
+
+    rng = np.random.default_rng(seed)
+    m, n = 600, 16
+    values = rng.uniform(0.05, 3.0, (2, m)).astype(np.float32)
+    index = rng.integers(0, n, (2, m))
+    got = segment_sum(torch.from_numpy(index), torch.from_numpy(values), n)
+    perm = rng.permutation(m)
+    again = segment_sum(torch.from_numpy(index[:, perm]),
+                        torch.from_numpy(values[:, perm]), n)
+    assert torch.equal(got, again)
+    for b in range(2):
+        for s in range(n):
+            exact = math.fsum(float(v) for v in values[b][index[b] == s])
+            assert got[b, s].item() == float(np.float32(exact))
+    fp32 = torch.zeros(2, n).scatter_add(1, torch.from_numpy(index[:, perm]),
+                                         torch.from_numpy(values[:, perm]))
+    assert not torch.equal(fp32, got)  # the fp32 sum rounds on the way

@@ -57,6 +57,55 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert int(out.stdout.split()[0]) >= 25  # every module was imported
 
 
+# the only places the port may import cv2, inside these functions: the
+# service's JPEG payload decode and the CLIs' file, video and window I/O
+CV2_FUNCTIONS = {
+    ("serving/service.py", "_decode_payload"),
+    ("utils/imload.py", "_cv2"),
+    ("cli/run.py", "main"),
+    ("cli/run_video.py", "main"),
+    ("cli/run_webcam.py", "main"),
+}
+
+
+def _cv2_import_sites(tree):
+    """The enclosing function's name (None at module level) of every
+    import of cv2 in a module's syntax tree."""
+    sites = []
+
+    def visit(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                names = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom):
+                names = [child.module or ""]
+            else:
+                names = []
+            if any(n.split(".")[0] == "cv2" for n in names):
+                sites.append(func)
+            visit(child, child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
+
+    visit(tree, None)
+    return sites
+
+
+def test_port_imports_cv2_only_inside_its_io_functions():
+    """No module of the port imports cv2 at import time; the functions
+    that do are the ones in ``CV2_FUNCTIONS``, and each still does."""
+    pkg = os.path.join(ROOT, "tfpose_tpu_torch")
+    found = set()
+    for dirpath, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                rel = os.path.relpath(path, pkg).replace(os.sep, "/")
+                for func in _cv2_import_sites(ast.parse(open(path).read())):
+                    assert func is not None, f"{rel} imports cv2 at import"
+                    found.add((rel, func))
+    assert found == CV2_FUNCTIONS
+
+
 def test_chip_smoke_imports_are_clean():
     # every import statement in the script, at any depth
     tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())

@@ -1,10 +1,11 @@
 """PyTorch / CUDA port of ``tfpose_tpu`` for NVIDIA Hopper cards.
 
 The package mirrors ``tfpose_tpu`` module by module and imports nothing
-of it (nor jax, flax, msgpack or cv2): torch, numpy and scipy only. The
-three decode kernels on the main path are hand-written CUDA under
-``csrc/``, built with ``nvcc`` at first use; every kernel wrapper runs
-its plain PyTorch version on CPU tensors.
+of it (nor jax, flax or msgpack): torch, numpy and scipy only, and cv2
+only inside the CLIs' file and video I/O and the service's JPEG decode.
+The four decode kernels are hand-written CUDA under ``csrc/``, built
+with ``nvcc`` at first use; every kernel wrapper runs its plain PyTorch
+version on CPU tensors.
 """
 
 __version__ = "0.1.0"

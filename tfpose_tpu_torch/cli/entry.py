@@ -1,0 +1,25 @@
+"""Console-script entry points of the port (``pyproject.toml``:
+``tfpose-torch-run``, ``-video``, ``-webcam``, ``-eval``), the
+counterparts of ``tfpose_tpu/cli/entry.py``."""
+
+from __future__ import annotations
+
+
+def run_main():
+    from tfpose_tpu_torch.cli.run import main
+    main()
+
+
+def video_main():
+    from tfpose_tpu_torch.cli.run_video import main
+    main()
+
+
+def webcam_main():
+    from tfpose_tpu_torch.cli.run_webcam import main
+    main()
+
+
+def eval_main():
+    from tfpose_tpu_torch.cli.eval import main
+    main()

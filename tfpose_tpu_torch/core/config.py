@@ -78,4 +78,4 @@ class EstimatorConfig:
     target_size: tuple = (432, 368)   # (w, h), reference default for run.py
     upsample_ratio: float = 4.0       # reference --resize-out-ratio default
     decode: DecodeParams = DecodeParams()
-    backbone_dtype: str = "float32"   # the port runs fp32 only so far
+    backbone_dtype: str = "float32"   # or "bfloat16"; decode stays fp32

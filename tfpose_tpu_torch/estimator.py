@@ -5,8 +5,10 @@ The hot path — normalize -> backbone forward -> decode — runs on one
 device, the card by default: ``device=None`` means ``"cuda"``, and the
 constructor raises when no card is present rather than moving to the
 CPU. ``device="cpu"`` runs every kernel's plain version (the tests do).
-The backbone runs fp32 (TF32 convolutions are switched off around the
-forward) and decode stays fp32.
+The backbone computes in fp32 (TF32 convolutions switched off around the
+forward) or, with ``dtype="bfloat16"``, in bf16 with fp32 parameters,
+rounding where flax rounds (``models/layers.py``); its maps are cast to
+fp32 and the decode stays fp32 either way.
 
 Entry points: ``inference`` (one image, also sets ``heatMat`` /
 ``pafMat``), ``inference_batch``, and for frames larger than the network
@@ -15,7 +17,8 @@ scale in one backbone batch, maps merged on the device, one decode).
 ``PoseEstimator.estimate_paf`` is the reference's host-side decode of
 given peaks and maps.
 
-Not ported yet (ROADMAP A12, A16): the int8 and bf16 backbones.
+Not ported yet (ROADMAP A12): the int8 backbone; ``quantize=True``
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -57,6 +60,20 @@ from tfpose_tpu_torch.utils.draw import draw_humans as _draw_humans
 
 logger = logging.getLogger("TfPoseEstimator")
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def run_backbone(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Normalized (N, H, W, 3) on the device -> ``net``'s concat_stage7
+    (N, H/8, W/8, 57) as fp32, under inference mode with cuDNN's TF32
+    off: an fp32 network computes in true fp32, a bf16 one casts its
+    input to bf16 itself and its maps come back cast to fp32."""
+    cudnn = torch.backends.cudnn
+    with torch.inference_mode(), cudnn.flags(
+            enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+            deterministic=cudnn.deterministic, allow_tf32=False):
+        return net(x)["concat_stage7"].float()
+
 
 class PoseEstimator:
     """Reference ``PoseEstimator``: the static PAF decode bridge, through
@@ -95,6 +112,7 @@ class TfPoseEstimator:
         'mobilenet_v2_large', 'mobilenet_v2_small', 'cmu' (or 'vgg').
       target_size: (w, h) network input size.
       decode_params: static decode thresholds/caps.
+      dtype: backbone compute type, ``"float32"`` or ``"bfloat16"``.
       params_path: flax msgpack checkpoint; without one the network runs
         with seeded random weights.
       warmup: run the reference's warm-up (full / half / quarter size).
@@ -103,16 +121,28 @@ class TfPoseEstimator:
         as the JAX estimator's option does, in place of the default
         resize equal to cv2's ``INTER_AREA``; ``inference_batch`` keeps
         the default, as in the JAX estimator.
+      quantize, calibration_images: the JAX estimator's int8 backbone,
+        not ported (ROADMAP A12): ``quantize=True`` raises.
       device: torch device; ``None`` means ``"cuda"``.
     """
 
     def __init__(self, model: str = "mobilenet_thin",
                  target_size: Tuple[int, int] = (320, 240),
                  decode_params: DecodeParams = DecodeParams(),
+                 dtype: str = "float32",
                  params_path: Optional[str] = None,
                  warmup: bool = False,
                  device_preprocess: bool = False,
+                 quantize: bool = False,
+                 calibration_images: Optional[np.ndarray] = None,
                  device: Optional[str] = None):
+        if quantize:
+            raise NotImplementedError(
+                "the int8 backbone (quantize=True) is not ported yet "
+                "(ROADMAP A12)")
+        if dtype not in _DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
+                             f"got {dtype!r}")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -122,7 +152,8 @@ class TfPoseEstimator:
         self.device_preprocess = device_preprocess
         self.target_size = target_size
         self.decode_params = decode_params
-        self.net = get_network(model)
+        self.dtype = dtype
+        self.net = get_network(model, _DTYPES[dtype])
         init_weights(self.net, torch.Generator().manual_seed(0))
         path = params_path or get_checkpoint_path(model)
         if os.path.exists(path):
@@ -150,27 +181,23 @@ class TfPoseEstimator:
                                upsample_size=1.0)
 
     # ------------------------------------------------------------------
-    def _backbone(self, x: torch.Tensor) -> torch.Tensor:
-        """Normalized (N, H, W, 3) on the device -> concat_stage7
-        (N, H/8, W/8, 57) fp32, with cuDNN's TF32 off."""
-        cudnn = torch.backends.cudnn
-        with torch.inference_mode(), cudnn.flags(
-                enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                deterministic=cudnn.deterministic, allow_tf32=False):
-            return self.net(x)["concat_stage7"].float()
-
     def _forward(self, imgs: np.ndarray, net_h: int, net_w: int,
                  bilinear: bool = False) -> torch.Tensor:
         """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, 57) fp32;
         ``bilinear`` resizes as :func:`prepare_bilinear` does."""
         x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
+        return self._forward_uint8(x, net_h, net_w, bilinear)
+
+    def _forward_uint8(self, x: torch.Tensor, net_h: int, net_w: int,
+                       bilinear: bool = False) -> torch.Tensor:
+        """:meth:`_forward` of uint8 (N, H, W, 3) already on the device."""
         resize = prepare_bilinear if bilinear else prepare
-        return self._backbone(resize(x, net_h, net_w))
+        return run_backbone(self.net, resize(x, net_h, net_w))
 
     def _forward_windows(self, wins: torch.Tensor) -> torch.Tensor:
         """Windows (N, h, w, 3), uint8 or unrounded float, -> their
         concat_stage7 maps in one backbone batch."""
-        return self._backbone(normalize(wins))
+        return run_backbone(self.net, normalize(wins))
 
     def _decode_params(self, escalated: bool = False) -> DecodeParams:
         return (self.decode_params.escalated() if escalated

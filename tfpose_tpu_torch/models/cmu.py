@@ -11,7 +11,8 @@ but the last of each branch, and no BatchNorm.
 
 The public layout is the JAX package's: the input is NHWC and
 ``concat_stage7`` = concat(heat 19, paf 38) is NHWC at stride 8; inside,
-the convs run NCHW. Submodule names are the flax names.
+the convs run NCHW. Submodule names are the flax names. ``dtype`` is
+the compute type (fp32 or bf16); the parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ class CmuNetwork(nn.Module):
     """VGG-19 CPM network. Input NHWC in [-0.5, 0.5]; output dict with
     the 57-channel ``concat_stage7`` and per-stage branch outputs."""
 
-    def __init__(self, num_stages: int = 6):
+    def __init__(self, num_stages: int = 6,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype  # compute type; the parameters stay fp32
         self.num_stages = num_stages
         ch = 3
         for layer in _VGG:
@@ -70,8 +73,8 @@ class CmuNetwork(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict:
         """x: (N, H, W, 3) float -> {"concat_stage7": (N, H/8, W/8, 57),
-        "stages": [(paf, heat), ...] NHWC}."""
-        h = x.permute(0, 3, 1, 2)
+        "stages": [(paf, heat), ...] NHWC}, in ``self.dtype``."""
+        h = x.to(self.dtype).permute(0, 3, 1, 2)
         for layer in _VGG:
             h = max_pool(h) if layer == "pool" else getattr(self, layer[0])(h)
         feat = h

@@ -7,12 +7,20 @@ return NCHW tensors; submodule names (``conv``/``bn``, ``depthwise``/
 flax variables tree maps onto the state dict one to one
 (``convert/checkpoint.py``).
 
-Two numerical details are kept from flax:
+Numerical details kept from flax:
   * padding is TF ``SAME``: a 3x3 stride-2 conv on an even input pads
     (0, 1), not the (1, 1) of ``nn.Conv2d(padding=1)``, which would shift
     every map by one pixel; ``max_pool`` pads with -inf the same way;
   * BatchNorm uses eps 1e-3 and stays a separate op (inference uses the
-    running statistics).
+    running statistics);
+  * the compute type is the input's: a network casts its input to its
+    ``dtype`` and every layer follows it, while the parameters stay
+    fp32. In bf16 a conv rounds as flax's ``nn.Conv(dtype=bf16)`` does
+    (input and kernel in bf16, the product rounded to bf16, then the bias
+    added in bf16), and BatchNorm as ``nn.BatchNorm(dtype=bf16)`` does
+    (flax subtracts the fp32 running mean from the bf16 input, so the
+    normalisation runs in fp32 and rounds to bf16 once: PyTorch's
+    mixed-type batch norm, bf16 input with fp32 statistics).
 """
 
 from __future__ import annotations
@@ -46,7 +54,8 @@ def pad_same(x: torch.Tensor, kernel: Tuple[int, int],
 class SameConv2d(nn.Conv2d):
     """``nn.Conv2d`` with TF ``SAME`` padding applied per input size:
     symmetric padding (stride 1, odd kernel) by the convolution itself,
-    without a padded copy of the input; otherwise an explicit pad."""
+    without a padded copy of the input; otherwise an explicit pad. It
+    computes in its input's type, with the fp32 weights cast to it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         top, bottom = same_pads(x.shape[-2], self.kernel_size[0],
@@ -57,8 +66,14 @@ class SameConv2d(nn.Conv2d):
         if top != bottom or left != right:
             x = F.pad(x, (left, right, top, bottom))
             pad = 0
-        return F.conv2d(x, self.weight, self.bias, self.stride, pad,
-                        self.dilation, self.groups)
+        if x.dtype == self.weight.dtype:
+            return F.conv2d(x, self.weight, self.bias, self.stride, pad,
+                            self.dilation, self.groups)
+        y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, pad,
+                     self.dilation, self.groups)
+        if self.bias is None:
+            return y
+        return y + self.bias.to(x.dtype)[:, None, None]
 
 
 def batch_norm(features: int) -> nn.BatchNorm2d:
@@ -118,7 +133,7 @@ class SeparableConv(nn.Module):
         self.depthwise = SameConv2d(in_ch, in_ch, kernel, strides,
                                     groups=in_ch, bias=False)
         self.dw_bn = batch_norm(in_ch)
-        self.pointwise = nn.Conv2d(in_ch, features, 1, bias=False)
+        self.pointwise = SameConv2d(in_ch, features, 1, bias=False)
         self.pw_bn = batch_norm(features)
         self.relu = relu
 

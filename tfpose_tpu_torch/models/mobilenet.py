@@ -11,7 +11,8 @@ conv_width=0.75 / conv_width2=0.50; ``mobilenet`` 1.0/1.0.
 
 The public layout is the JAX package's: the input is NHWC and
 ``concat_stage7`` = concat(heat 19, paf 38) is NHWC at stride 8; inside,
-the convs run NCHW.
+the convs run NCHW. ``dtype`` is the compute type (fp32 or bf16, as
+flax's ``dtype``); the parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -36,8 +37,9 @@ class MobilenetNetwork(nn.Module):
     """MobileNet-v1-style two-branch pose network."""
 
     def __init__(self, conv_width: float = 0.75, conv_width2: float = 0.50,
-                 num_stages: int = 6):
+                 num_stages: int = 6, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype  # compute type; the parameters stay fp32
 
         def depth(ch):
             return max(int(ch * conv_width), _MIN_DEPTH)
@@ -60,8 +62,8 @@ class MobilenetNetwork(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict:
         """x: (N, H, W, 3) float -> {"concat_stage7": (N, H/8, W/8, 57),
-        "stages": [(paf, heat), ...] NHWC}."""
-        x = self.Conv2d_0(x.permute(0, 3, 1, 2))
+        "stages": [(paf, heat), ...] NHWC}, in ``self.dtype``."""
+        x = self.Conv2d_0(x.to(self.dtype).permute(0, 3, 1, 2))
         taps = {}
         for i in range(1, len(_SPEC) + 1):
             x = getattr(self, f"Conv2d_{i}")(x)

@@ -13,7 +13,8 @@ The public layout is the JAX package's: the input is NHWC and
 ``concat_stage7`` = concat(heat 19, paf 38) is NHWC at stride 8; inside,
 the convs run NCHW. Submodule names are the flax names (``Conv``,
 ``Conv_bn``, ``expanded_conv_{i}/{expand,expand_bn,depthwise,dw_bn,
-project,project_bn}``, ``MConv_Stage{s}``).
+project,project_bn}``, ``MConv_Stage{s}``). ``dtype`` is the compute
+type (fp32 or bf16); the parameters stay fp32.
 """
 
 from __future__ import annotations
@@ -53,12 +54,12 @@ class InvertedResidual(nn.Module):
         super().__init__()
         hidden = in_ch * expansion
         if expansion != 1:
-            self.expand = nn.Conv2d(in_ch, hidden, 1, bias=False)
+            self.expand = SameConv2d(in_ch, hidden, 1, bias=False)
             self.expand_bn = batch_norm(hidden)
         self.depthwise = SameConv2d(hidden, hidden, 3, stride, groups=hidden,
                                     bias=False)
         self.dw_bn = batch_norm(hidden)
-        self.project = nn.Conv2d(hidden, features, 1, bias=False)
+        self.project = SameConv2d(hidden, features, 1, bias=False)
         self.project_bn = batch_norm(features)
         self.expansion = expansion
         self.residual = stride == 1 and in_ch == features
@@ -76,8 +77,9 @@ class MobilenetV2Network(nn.Module):
     """MobileNet-v2 two-branch pose network."""
 
     def __init__(self, conv_width: float = 1.4, refine_width: float = 1.0,
-                 num_stages: int = 6):
+                 num_stages: int = 6, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype  # compute type; the parameters stay fp32
 
         def dm(ch: int) -> int:  # slim: multiplier with make_divisible
             return make_divisible(ch * conv_width, 8)
@@ -101,15 +103,17 @@ class MobilenetV2Network(nn.Module):
 
     def forward(self, x: torch.Tensor) -> dict:
         """x: (N, H, W, 3) float -> {"concat_stage7": (N, H/8, W/8, 57),
-        "stages": [(paf, heat), ...] NHWC}."""
-        h = F.relu6(self.Conv_bn(self.Conv(x.permute(0, 3, 1, 2))))
+        "stages": [(paf, heat), ...] NHWC}, in ``self.dtype``."""
+        x = x.to(self.dtype).permute(0, 3, 1, 2)
+        h = F.relu6(self.Conv_bn(self.Conv(x)))
         for i in range(len(_V2_BLOCKS)):
             h = getattr(self, f"expanded_conv_{i}")(h)
             if i == _TAP_S8:
                 tap8 = h
-        # the half-pixel bilinear 2x of the stride-16 tap, on NHWC
-        up = resize_bilinear(nhwc(h), tap8.shape[2], tap8.shape[3])
-        feat = torch.cat([tap8, up.permute(0, 3, 1, 2)], 1)
+        # the half-pixel bilinear 2x of the stride-16 tap, on NHWC, in
+        # fp32 and cast back, as the JAX model does
+        up = resize_bilinear(nhwc(h).float(), tap8.shape[2], tap8.shape[3])
+        feat = torch.cat([tap8, up.permute(0, 3, 1, 2).to(h.dtype)], 1)
         g = feat
         stages = []
         for s in range(1, self.num_stages + 1):

@@ -1,5 +1,5 @@
 """Model registry — port of ``tfpose_tpu/models/registry.py``
-(reference ``tf_pose/networks.py``): ``get_network(name)``,
+(reference ``tf_pose/networks.py``): ``get_network(name, dtype)``,
 ``model_wh('432x368')`` and checkpoint path resolution."""
 
 from __future__ import annotations
@@ -7,6 +7,7 @@ from __future__ import annotations
 import os
 from typing import Tuple
 
+import torch
 from torch import nn
 
 from tfpose_tpu_torch.models.cmu import CmuNetwork
@@ -25,19 +26,26 @@ _DEFAULT_MODEL_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "models")
 
 
-def get_network(name: str) -> nn.Module:
-    """Instantiate a backbone (fp32) by reference model name ("vgg" is
-    an alias of "cmu")."""
+def get_network(name: str, dtype: torch.dtype = torch.float32) -> nn.Module:
+    """Instantiate a backbone by reference model name ("vgg" is an alias
+    of "cmu"). ``dtype`` (``torch.float32`` or ``torch.bfloat16``) is the
+    compute type; the parameters are fp32 either way."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, "
+                         f"got {dtype}")
     if name in ("cmu", "vgg"):
-        return CmuNetwork()
+        return CmuNetwork(dtype=dtype)
     if name == "mobilenet":
-        return MobilenetNetwork(conv_width=1.0, conv_width2=1.0)
+        return MobilenetNetwork(conv_width=1.0, conv_width2=1.0, dtype=dtype)
     if name == "mobilenet_thin":
-        return MobilenetNetwork(conv_width=0.75, conv_width2=0.50)
+        return MobilenetNetwork(conv_width=0.75, conv_width2=0.50,
+                                dtype=dtype)
     if name == "mobilenet_v2_large":
-        return MobilenetV2Network(conv_width=1.4, refine_width=1.0)
+        return MobilenetV2Network(conv_width=1.4, refine_width=1.0,
+                                  dtype=dtype)
     if name == "mobilenet_v2_small":
-        return MobilenetV2Network(conv_width=0.50, refine_width=0.50)
+        return MobilenetV2Network(conv_width=0.50, refine_width=0.50,
+                                  dtype=dtype)
     raise ValueError(
         f"unknown model {name!r}; known: {', '.join(MODEL_NAMES)}")
 

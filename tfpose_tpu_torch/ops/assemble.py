@@ -22,7 +22,10 @@ semantics, from the JAX module's docstring:
 
 The JAX version writes every scatter as a dense one-hot matmul because
 scatters serialise under ``vmap`` on the TPU; here they are the scatter
-and gather ops PyTorch has on both devices.
+and gather ops PyTorch has on both devices. A floating-point
+``scatter_add`` on the card sums with atomics in an order that changes
+from run to run, so the per-component score sums go through
+:func:`segment_sum`, which is exact and so independent of that order.
 """
 
 from __future__ import annotations
@@ -51,6 +54,19 @@ class Assembled(NamedTuple):
     # (18,) bool — every top-K slot of the part is above threshold: the
     # decode MAY have dropped real peaks of that part
     peak_saturated: torch.Tensor
+
+
+def segment_sum(index: torch.Tensor, values: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """(B, M) fp32 ``values`` summed into (B, n) segments by ``index``,
+    accumulated in fp64 and rounded to fp32 once. An fp64 sum of fp32
+    values is exact while they lie within about 2^28 of each other in
+    magnitude (the part and connection scores summed here lie within a
+    few binades), so the result does not depend on the order the card's
+    atomic adds take: it is the same on every run and on the CPU."""
+    out = torch.zeros(values.shape[0], n, dtype=torch.float64,
+                      device=values.device)
+    return out.scatter_add(1, index, values.double()).float()
 
 
 def _at(vals: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
@@ -202,11 +218,10 @@ def assemble_dense(peaks: Peaks, conns: Connections,
     root = labels
 
     # ---- per-root aggregates
-    zeros_n = torch.zeros(bsz, n, dtype=torch.float32, device=dev)
-    score_sum = zeros_n.scatter_add(
-        1, _at(root, a_node), torch.where(tree, e_score, 0.0))
-    score_sum = score_sum + zeros_n.scatter_add(
-        1, root, torch.where(used, node_score, 0.0) + bon_s)
+    score_sum = segment_sum(
+        torch.cat([_at(root, a_node), root], 1),
+        torch.cat([torch.where(tree, e_score, 0.0),
+                   torch.where(used, node_score, 0.0) + bon_s], 1), n)
     count = torch.zeros(bsz, n, dtype=torch.long, device=dev).scatter_add(
         1, root, used.long() + bon_c)
 

@@ -36,12 +36,21 @@ def prepare(img: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
     as the target on both axes by area averaging (:func:`downscale_area`),
     one that is smaller on an axis by cv2's linear rule with area weights
     (:func:`resize_area_u8`, byte for byte)."""
+    return normalize(resize_u8(img, target_h, target_w))
+
+
+def resize_u8(img: torch.Tensor, target_h: int,
+              target_w: int) -> torch.Tensor:
+    """uint8 (..., H, W, 3) -> uint8 (..., target_h, target_w, 3) as
+    ``cv2.resize(..., interpolation=cv2.INTER_AREA)``: by area averaging
+    (:func:`downscale_area`) where it shrinks on both axes, else by cv2's
+    linear rule with area weights (:func:`resize_area_u8`)."""
     h, w = img.shape[-3], img.shape[-2]
     if (h, w) == (target_h, target_w):
-        return normalize(img)
+        return img
     if h >= target_h and w >= target_w:
-        return normalize(downscale_area(img, target_h, target_w))
-    return normalize(resize_area_u8(img, target_h, target_w))
+        return downscale_area(img, target_h, target_w)
+    return resize_area_u8(img, target_h, target_w)
 
 
 def prepare_bilinear(img: torch.Tensor, target_h: int,
