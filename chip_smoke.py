@@ -73,13 +73,34 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      largest value; CMU: max within 5 %); thin ``inference`` x8 and
      ``inference_batch`` B=8 and CMU B=16 in bf16 through the kernels,
      the thin humans reported against fp32's; their times in turns with
-     fp32's and one profile each.
+     fp32's and one profile each;
+  8. int8: thin368_coco calibrated on the card, its calibration against
+     the CPU's (rtol 1e-5), ``inference`` x8 and ``inference_batch`` B=8
+     through the kernels with the int8 maps equal to the CPU int8
+     forward's bit for bit (the card's calibration in both) and the
+     humans equal to the CPU int8 estimator's; AP50 on 50 rendered
+     432x368 scenes at least 0.6 (``tests/test_quantize.py``'s int8 gate)
+     beside fp32's; CMU (seeded) calibrated on the card, B=16 through
+     the kernels and its int8 maps of two frames equal to the CPU's;
+     the int8 accumulators of CMU's K = 9065 conv saturated at +-127
+     equal to int64; times of thin ``inference`` and B=8 and CMU B=16,
+     fp32 and int8 in turns, and a profile of each int8 call;
+  9. train: ``tfpose-torch-train``'s ``main`` with mobilenet_thin at
+     368x368, B=16, lr 3e-3, 30 steps on rendered scenes, in fp32, with
+     ``--device-targets`` and in bf16: the mean loss of the last 3 steps
+     below 0.85 of the first 3 (``tests/test_learning.py``'s bar), images
+     per second and a profile of one step; one fp32 step's loss and
+     gradients on the card against the CPU's (B=4); the exported
+     ``params.msgpack`` loaded by
+     ``TfPoseEstimator`` on the card, whose maps equal the trainer's
+     network's.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 The last lines are the kernels driven, one JSON line per the kernels'
 numbers, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
-the port only, and writes nothing outside ``tfpose_tpu_torch/_build/``.
+the port only, and writes nothing outside ``tfpose_tpu_torch/_build/``
+(phase 9's checkpoints go to ``_build/chip_smoke_train/``).
 """
 
 from __future__ import annotations
@@ -694,6 +715,7 @@ def main() -> int:
                 same_humans(g, w, f"{path} image {i}")
         log("humans equal the CPU estimator's (coords 1e-6, scores 1e-4)")
         stats, _ = synthetic_e2e(est, 50, 432, 368)
+        thin_ap50 = stats["AP50"]
         log(f"AP on the card, mobilenet_thin (thin368_coco), 50 rendered "
             f"432x368 scenes: AP50 {stats['AP50']:.4f} (gate 0.95), AP "
             f"{stats['AP']:.4f}, mean deviation "
@@ -1266,6 +1288,236 @@ def main() -> int:
                 f"{nk:.0f} kernel launches per call [{smi}]")
             for key, ms, cnt in rows[:6]:
                 log(f"  {ms:.4f} ms  x{cnt:.0f}  {key[:90]}")
+
+    from tfpose_tpu_torch.cli import train as train_cli
+    from tfpose_tpu_torch.convert.checkpoint import (
+        variables_from_numpy, variables_to_numpy)
+    from tfpose_tpu_torch.models import get_network
+    from tfpose_tpu_torch.models.layers import (
+        init_weights, int_conv2d, set_quant_mode)
+    from tfpose_tpu_torch.train.state import (
+        TrainState, batch_loss, make_optimizer, make_train_step)
+
+    def copy_calibration(src, dst):
+        """The card network's in_absmax into ``dst`` (a CPU network)."""
+        variables_from_numpy(dst, variables_to_numpy(src))
+
+    with phase("8 int8"):
+        t = time.perf_counter()
+        est8 = TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
+                               params_path=CHECKPOINT, quantize=True)
+        torch.cuda.synchronize()
+        log(f"int8 thin368_coco estimator, calibrated on the card on 8 "
+            f"rendered 432x368 scenes, in {time.perf_counter() - t:.2f} s")
+        cpu8 = TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
+                               params_path=CHECKPOINT, quantize=True,
+                               device="cpu")
+        qa = variables_to_numpy(est8.net)["quant"]
+        qb = variables_to_numpy(cpu8.net)["quant"]
+
+        def leaves(t, out):
+            for v in t.values():
+                if isinstance(v, dict):
+                    leaves(v, out)
+                else:
+                    out.append(float(v))
+            return out
+
+        flat_a, flat_b = leaves(qa, []), leaves(qb, [])
+        rel = max(abs(a - b) / b for a, b in zip(flat_a, flat_b))
+        log(f"calibration on the card vs the CPU: {len(flat_a)} convs, "
+            f"max rel diff {rel:.3g} (tolerance 1e-5), "
+            f"{sum(a == b for a, b in zip(flat_a, flat_b))} equal")
+        check(len(flat_a) == 143 and rel <= 1e-5, "int8 calibration differs")
+        copy_calibration(est8.net, cpu8.net)
+        with torch.inference_mode():
+            m8 = est8._forward(np.stack(imgs), 368, 432).cpu()
+            m8c = cpu8._forward(np.stack(imgs), 368, 432)
+            m32 = est._forward(np.stack(imgs), 368, 432).cpu()
+        d = (m8 - m8c).abs().max().item()
+        scale = m32.abs().max().item()
+        log(f"int8 thin concat_stage7 {tuple(m8.shape)} on the card vs the "
+            f"CPU int8 forward (the card's calibration): max |d| {d:.3g} "
+            f"(tolerance 0: bit for bit); int8 vs fp32 max |d| "
+            f"{(m8 - m32).abs().max().item() / scale:.4g} of max |map| "
+            f"{scale:.4g}")
+        check(torch.equal(m8, m8c), "int8 maps differ from the CPU's")
+        int8_paths = {
+            "int8_thin_inference": (lambda e: [
+                e.inference(img, upsample_size=4.0) for img in imgs],
+                ("smooth_nms",)),
+            "int8_thin_batch": (lambda e: e.inference_batch(
+                imgs, upsample_size=4.0),
+                ("smooth_nms_topk_raw", "score_candidates_raw")),
+        }
+        for path, (run, needed) in int8_paths.items():
+            got = drive(path, lambda: run(est8))
+            launched(path, *needed)
+            log(f"humans per image, {path}: {[len(h) for h in got]}")
+            check(sum(len(h) for h in got) > 0, f"{path}: no humans found")
+            for i, (g, w) in enumerate(zip(got, run(cpu8))):
+                same_humans(g, w, f"{path} image {i}")
+        log("int8 humans equal the CPU int8 estimator's (coords 1e-6, "
+            "scores 1e-4)")
+        stats8, _ = synthetic_e2e(est8, 50, 432, 368)
+        log(f"AP on the card, int8 mobilenet_thin (thin368_coco), 50 "
+            f"rendered 432x368 scenes: AP50 {stats8['AP50']:.4f} (gate 0.6; "
+            f"fp32 in phase 3: {thin_ap50:.4f}), AP {stats8['AP']:.4f}, "
+            f"mean deviation {stats8['mean_px_deviation']:.3f} px")
+        check(stats8["AP50"] >= 0.6, f"int8 AP50 {stats8['AP50']} < 0.6")
+
+        t = time.perf_counter()
+        cmu8 = TfPoseEstimator("cmu", target_size=(656, 368), quantize=True)
+        torch.cuda.synchronize()
+        log(f"int8 cmu estimator (seeded weights) calibrated on the card in "
+            f"{time.perf_counter() - t:.2f} s")
+        got16 = drive("int8_cmu_batch", lambda: cmu8.inference_batch(
+            frames656, upsample_size=4.0))
+        launched("int8_cmu_batch", "smooth_nms_topk_raw",
+                 "score_candidates_raw")
+        log(f"humans with random weights, int8_cmu_batch: "
+            f"{[len(h) for h in got16]}")
+        cmu_cpu8 = cpu_cmu.net
+        set_quant_mode(cmu_cpu8, "int8")
+        copy_calibration(cmu8.net, cmu_cpu8)
+        with torch.inference_mode():
+            c8 = cmu8._forward(np.stack(frames656), 368, 656)
+            t = time.perf_counter()
+            c8c = cpu_cmu._forward(np.stack(frames656[:2]), 368, 656)
+            secs = time.perf_counter() - t
+        set_quant_mode(cmu_cpu8, "none")
+        scale = maps.abs().max().item()  # phase 4's fp32 cmu maps
+        log(f"int8 cmu concat_stage7 {tuple(c8.shape)} on the card vs the CPU"
+            f" int8 forward ({secs:.2f} s) of 2 frames: max |d| "
+            f"{(c8[:2].cpu() - c8c).abs().max().item():.3g} (tolerance 0); "
+            f"int8 vs fp32 max |d| {(c8 - maps).abs().max().item() / scale:.4g}"
+            f" of max |map| {scale:.4g}")
+        check(torch.equal(c8[:2].cpu(), c8c), "int8 cmu maps differ")
+
+        xs = torch.full((2, 185, 52, 88), 127, dtype=torch.int8)
+        ws = torch.full((128, 185, 7, 7), 127, dtype=torch.int8)
+        acc = int_conv2d(xs.to(dev), ws.to(dev), (1, 1)).cpu().long()
+        cols = torch.nn.functional.unfold(xs.double(), (7, 7)).long()
+        want = torch.einsum("ok,nkl->nol", ws.reshape(128, -1).long(),
+                            cols).reshape(acc.shape)
+        check(torch.equal(acc, want) and int(acc.max()) == 9065 * 127 * 127,
+              "saturated K=9065 accumulators differ from int64")
+        log(f"int8 accumulators of a 7x7x185 conv (K = 9065) saturated at "
+            f"+127 on the card: {int(acc.max())} = 9065 * 127^2 > 2^24, "
+            f"equal to int64 at all {acc.numel()} outputs")
+        for what, f32, f8, b in (
+                ("thin inference (1 image, 432x368, upsample 4)",
+                 lambda: est.inference(imgs[0], upsample_size=4.0),
+                 lambda: est8.inference(imgs[0], upsample_size=4.0), 1),
+                ("thin inference_batch B=8 (432x368, upsample 4)",
+                 lambda: est.inference_batch(imgs, upsample_size=4.0),
+                 lambda: est8.inference_batch(imgs, upsample_size=4.0), 8),
+                ("cmu inference_batch B=16 (656x368, upsample 4)",
+                 lambda: est_cmu.inference_batch(frames656,
+                                                 upsample_size=4.0),
+                 lambda: cmu8.inference_batch(frames656, upsample_size=4.0),
+                 16)):
+            line = []
+            for dt, fn in (("fp32", f32), ("int8", f8), ("fp32", f32),
+                           ("int8", f8)):
+                med, p90 = time_host(fn, 5)
+                line.append(f"{dt} median {med * 1e3:.3f} ms p90 "
+                            f"{p90 * 1e3:.3f} ms ({b / med:.2f} img/s)")
+            log(f"time {what}, in turns: {' | '.join(line)} [{smi}]")
+            wall, busy, nk, rows = profile_calls(f8, n=1)
+            log(f"profile int8 {what}: wall {wall:.3f} ms, device busy "
+                f"{busy:.3f} ms (idle {100 * (1 - busy / wall):.1f} %), "
+                f"{nk:.0f} kernel launches per call [{smi}]")
+            for key, ms, cnt in rows[:6]:
+                log(f"  {ms:.4f} ms  x{cnt:.0f}  {key[:90]}")
+
+    with phase("9 train"):
+        ckdir = os.path.join(ROOT, "tfpose_tpu_torch", "_build",
+                             "chip_smoke_train")
+        if os.path.isdir(ckdir):
+            for name in os.listdir(ckdir):
+                if name.endswith((".pt", ".msgpack")):
+                    os.remove(os.path.join(ckdir, name))
+        base = ["--synthetic", "--model", "mobilenet_thin", "--input-size",
+                "368x368", "--batchsize", "16", "--lr", "3e-3",
+                "--max-steps", "30", "--log-every", "1"]
+        runs = {"fp32": ["--checkpoint-dir", ckdir, "--save-every", "1000"],
+                "fp32 --device-targets": ["--device-targets"],
+                "bf16": ["--bf16"]}
+        states = drive("train", lambda: {what: train_cli.main(base + extra)
+                                         for what, extra in runs.items()})
+        check(not any(path_launches["train"].values()),
+              "the training path launched a decode kernel")
+        for what, st in states.items():
+            loss = [h["loss"] for h in st.history]
+            check(st.step == 30 and len(loss) == 30, f"train {what}: steps")
+            first, last = np.mean(loss[:3]), np.mean(loss[-3:])
+            h5, hl = st.history[4], st.history[-1]
+            rate = (hl["step"] - h5["step"]) * 16 / (hl["time"] - h5["time"])
+            log(f"train {what}: thin 368x368 B=16 lr 3e-3, 30 steps on the "
+                f"card: loss {first:.1f} (first 3) -> {last:.1f} (last 3), "
+                f"{last / first:.4f} of the start (bar 0.85); {rate:.2f} "
+                f"images/s over steps 6-30, {hl['images_per_sec']:.2f} over "
+                f"all with the first [{smi}]")
+            check(last < 0.85 * first, f"train {what}: loss {first} -> {last}")
+            check(all(p.dtype == torch.float32 and p.is_cuda
+                      for p in st.net.parameters()), f"train {what}: params")
+
+        # a profile of the fp32 step, on a network of its own
+        pnet = init_weights(get_network("mobilenet_thin"),
+                            torch.Generator().manual_seed(0)).to(dev)
+        pstate = TrainState.create(pnet, make_optimizer(3e-3))
+        step = make_train_step()
+        tbatch = next(train_cli.synthetic_batches(
+            16, (368, 368), np.random.default_rng(4)))
+        wall, busy, nk, rows = profile_calls(
+            lambda: step(pstate, tbatch)[1]["loss"].item())
+        log(f"profile of one fp32 train step (B=16, 368x368, host batch "
+            f"included): wall {wall:.3f} ms, device busy {busy:.3f} ms "
+            f"(idle {100 * (1 - busy / wall):.1f} %), {nk:.0f} kernels [{smi}]")
+        for key, ms, cnt in rows[:8]:
+            log(f"  {ms:.4f} ms  x{cnt:.0f}  {key[:90]}")
+
+        # the exported weights, loaded by the estimator on the card
+        trained = states["fp32"].net
+        est_t = TfPoseEstimator("mobilenet_thin", target_size=(368, 368),
+                                params_path=os.path.join(
+                                    ckdir, "params.msgpack"))
+        timgs = render_frames(np.random.default_rng(9), 4, 368, 368)
+        heat = train_cli.predict_heat(trained, np.stack(timgs))
+        with torch.inference_mode():
+            emaps = est_t._forward(np.stack(timgs), 368, 368).cpu().numpy()
+        check(np.array_equal(emaps[..., :19], heat),
+              "the exported params.msgpack gives other maps")
+        log(f"exported params.msgpack ({os.path.getsize(os.path.join(ckdir, 'params.msgpack'))} B) "
+            f"loaded by TfPoseEstimator on the card: heat maps of 4 frames "
+            f"equal the trainer's predict_heat bit for bit")
+
+        # one fp32 step's loss and gradients, card against CPU
+        batch = next(train_cli.synthetic_batches(
+            4, (368, 368), np.random.default_rng(3)))
+        net_g = init_weights(get_network("mobilenet_thin"),
+                             torch.Generator().manual_seed(0))
+        net_c = get_network("mobilenet_thin")
+        net_c.load_state_dict(net_g.state_dict())
+        net_g.to(dev)
+        losses, grads = [], []
+        t = time.perf_counter()
+        for m in (net_g, net_c):
+            loss, _ = batch_loss(m, batch)
+            loss.backward()
+            losses.append(loss.item())
+            grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+        top = max(g.abs().max().item() for g in grads[1].values())
+        worst = max((grads[0][k] - g).abs().max().item() / top
+                    for k, g in grads[1].items())
+        rel = abs(losses[0] - losses[1]) / losses[1]
+        log(f"one fp32 step, thin 368x368 B=4, card vs CPU "
+            f"({time.perf_counter() - t:.2f} s): loss {losses[0]:.6g} vs "
+            f"{losses[1]:.6g} (rel {rel:.3g}, tolerance 1e-5); gradients "
+            f"max |d| {worst:.3g} of the largest (tolerance 0.15) over "
+            f"{len(grads[1])} leaves")
+        check(rel <= 1e-5 and worst <= 0.15, "train step differs from CPU")
 
     # every path's launches, the serving and bf16 paths included
     for entry in kernels:

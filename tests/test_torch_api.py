@@ -368,9 +368,15 @@ def test_eval_cli_matches_jax(argv):
 
 
 def test_eval_cli_quantize_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A12"):
-        eval_cli.main(["--synthetic-e2e", "1", "--resize", "64x64",
-                       "--quantize", "--device", "cpu"])
+    """``eval --quantize`` runs the int8 backbone (ROADMAP A12): a
+    rendered 64x64 scene through the int8 estimator with random weights,
+    calibrated on rendered scenes, gives the statistics' keys and no
+    human. Its numbers against the JAX
+    ``eval.py --quantize`` are ``tests/test_torch_quantize.py``'s."""
+    stats = eval_cli.main(["--synthetic-e2e", "1", "--resize", "64x64",
+                           "--quantize", "--device", "cpu"])
+    assert {"AP", "AP50", "matched_humans"} <= stats.keys()
+    assert stats["AP50"] == 0.0
 
 
 def test_run_cli_on_an_image_file(tmp_path, monkeypatch):

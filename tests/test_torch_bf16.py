@@ -101,8 +101,17 @@ def test_estimator_dtype_and_quantize_arguments():
     assert est.heatMat.dtype == np.float32
     with pytest.raises(ValueError, match="dtype"):
         TfPoseEstimator("mobilenet_thin", dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        TfPoseEstimator("mobilenet_thin", quantize=True, device="cpu")
+    # quantize=True composes with bf16: int8 convs on the upcast input,
+    # BatchNorm rounding its fp32 output to bf16, fp32 maps
+    est8 = TfPoseEstimator("mobilenet_thin", target_size=(64, 64),
+                           dtype="bfloat16", quantize=True, device="cpu")
+    assert est8.quantized and est8.net.dtype == torch.bfloat16
+    assert {m.quant for m in est8.net.modules() if hasattr(m, "quant")} \
+        == {"int8"}
+    assert all(p.dtype == torch.float32 for p in est8.net.parameters())
+    est8.inference(img, upsample_size=2.0)
+    assert est8.heatMat.dtype == np.float32
+    assert np.isfinite(est8.heatMat).all()
     with pytest.raises(ValueError, match="dtype"):
         get_network("mobilenet_thin", torch.float16)
 

@@ -346,3 +346,112 @@ def test_bf16_backbone_on_the_card_against_the_cpu(nets, name):
     scale = ref32.abs().max().item()
     assert scale > 0
     assert (card.float().cpu() - cpu).abs().max().item() <= 3e-2 * scale
+
+
+def _int64_dense(xq, wq):
+    o, _, kh, kw = wq.shape
+    cols = torch.nn.functional.unfold(xq.double(), (kh, kw)).long()
+    out = torch.einsum("ok,nkl->nol", wq.reshape(o, -1).long(), cols)
+    n, _, h, w = xq.shape
+    return out.reshape(n, o, h - kh + 1, w - kw + 1)
+
+
+def test_int8_accumulators_on_the_card_equal_int64(nets):
+    """The int8 convs' accumulators on the card (``torch._int_mm`` for a
+    dense conv, int32 tap sums for a depthwise one) equal an int64
+    reference: CMU's 7x7x185 conv (K = 9065) saturated at +-127 of one
+    sign (146,209,385, past fp32's exact integers), random values, and
+    a saturated depthwise 3x3."""
+    from tfpose_tpu_torch.models.layers import int_conv2d
+
+    rng = np.random.default_rng(9)
+    w = torch.full((128, 185, 7, 7), 127, dtype=torch.int8)
+    for x in (torch.full((2, 185, 52, 88), 127, dtype=torch.int8),
+              torch.from_numpy(rng.integers(-127, 128, (2, 185, 52, 88),
+                                            dtype=np.int8))):
+        got = int_conv2d(x.cuda(), w.cuda(), (1, 1))
+        assert torch.equal(got.cpu().long(), _int64_dense(x, w))
+    wr = torch.from_numpy(rng.integers(-127, 128, (40, 185, 7, 7),
+                                       dtype=np.int8))
+    assert torch.equal(int_conv2d(x.cuda(), wr.cuda(), (1, 1)).cpu().long(),
+                       _int64_dense(x, wr))
+    xd = torch.full((4, 96, 30, 40), -127, dtype=torch.int8)
+    wd = torch.full((96, 1, 3, 3), 127, dtype=torch.int8)
+    got = int_conv2d(xd.cuda(), wd.cuda(), (2, 2), groups=96).cpu()
+    assert int(got.min()) == -9 * 127 * 127
+    assert torch.equal(got, int_conv2d(xd, wd, (2, 2), groups=96))
+
+
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_int8_forward_on_the_card_equals_the_cpu(nets, name):
+    """Seeded random weights (BN statistics away from identity) at
+    96x128 (CMU at 64x96), calibrated on the card: the calibration
+    within rtol 1e-5 of the CPU's, and with the card's calibration in
+    both, the int8 ``concat_stage7`` of the card equal to the CPU's bit
+    for bit: integer accumulators, and every float op (quantise,
+    rescale, BatchNorm one op at a time) rounded alike."""
+    from tfpose_tpu_torch.convert.checkpoint import (
+        variables_from_numpy, variables_to_numpy)
+    from tfpose_tpu_torch.models.quantize import (
+        calibrate, default_calibration_images)
+    from tfpose_tpu_torch.models.layers import set_quant_mode
+
+    h, w = (64, 96) if name == "cmu" else (96, 128)
+    gen = torch.Generator().manual_seed(5)
+    net = init_weights(get_network(name), gen).eval()
+    with torch.no_grad():
+        for mod in net.modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.normal_(0, 0.1, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+    cpu = get_network(name).eval()
+    cpu.load_state_dict(net.state_dict())
+    imgs = default_calibration_images((w, h), n=2)
+    card = net.cuda()
+    q_card = calibrate(card, imgs)
+    q_cpu = calibrate(cpu, imgs)
+
+    def leaves(t):
+        return [v for x in t.values() for v in (
+            leaves(x) if isinstance(x, dict) else [x])]
+
+    np.testing.assert_allclose(leaves(q_card), leaves(q_cpu), rtol=1e-5)
+    variables_from_numpy(cpu, dict(variables_to_numpy(card)))
+    set_quant_mode(card, "int8")
+    set_quant_mode(cpu, "int8")
+    x = torch.from_numpy(np.random.default_rng(2).uniform(
+        -0.5, 0.5, (2, h, w, 3)).astype(np.float32))
+    with torch.no_grad():
+        want = cpu(x)["concat_stage7"]
+        got = card(x.cuda())["concat_stage7"].cpu()
+    assert torch.equal(got, want), (got - want).abs().max().item()
+
+
+def test_train_step_on_the_card_matches_the_cpu(nets):
+    """One fp32 step of thin at 32x32, B = 4, from the same seeded
+    weights and batch, TF32 off: the loss within rtol 1e-5, every
+    gradient within 0.15 of the largest one (the bound against JAX on
+    the CPU, ``tests/test_torch_train.py``; cuDNN's weight gradients sum
+    with atomics), the BN running statistics within 1e-5."""
+    from tfpose_tpu_torch.cli.train import synthetic_batches
+    from tfpose_tpu_torch.train.state import batch_loss
+
+    batch = next(synthetic_batches(4, (32, 32), np.random.default_rng(0)))
+    net = init_weights(get_network("mobilenet_thin"),
+                       torch.Generator().manual_seed(0))
+    cpu = get_network("mobilenet_thin")
+    cpu.load_state_dict(net.state_dict())
+    card = net.cuda()
+    losses, grads = [], []
+    for m in (cpu, card):
+        loss, _ = batch_loss(m, batch)
+        loss.backward()
+        losses.append(loss.item())
+        grads.append({k: p.grad.cpu() for k, p in m.named_parameters()})
+    assert losses[1] == pytest.approx(losses[0], rel=1e-5)
+    top = max(g.abs().max().item() for g in grads[0].values())
+    assert max((grads[1][k] - g).abs().max().item()
+               for k, g in grads[0].items()) <= 0.15 * top
+    for (k, a), b in zip(cpu.named_buffers(), card.buffers()):
+        if a.is_floating_point():
+            assert (b.cpu() - a).abs().max().item() <= 1e-5, k

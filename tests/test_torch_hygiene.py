@@ -1,6 +1,7 @@
 """Import hygiene of the port: ``tfpose_tpu_torch`` and ``chip_smoke.py``
-load no jax, flax, msgpack, cv2 or ``tfpose_tpu`` module, and the chip
-run refuses to start without a card or outside a checkout."""
+load no jax, flax, optax, orbax, msgpack, cv2, tensorboard or
+``tfpose_tpu`` module, and the chip run refuses to start without a card
+or outside a checkout."""
 
 import ast
 import os
@@ -10,7 +11,8 @@ import sys
 
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack", "cv2", "tfpose_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "cv2",
+             "tensorboard", "tfpose_tpu")
 
 # Runs in a fresh interpreter: block the forbidden packages at import
 # time, then run the payload and report what loaded.
@@ -58,19 +60,29 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 
 # the only places the port may import cv2, inside these functions: the
-# service's JPEG payload decode and the CLIs' file, video and window I/O
+# service's JPEG payload decode, the CLIs' file, video and window I/O,
+# and the training data's augmentations and PNG export
 CV2_FUNCTIONS = {
     ("serving/service.py", "_decode_payload"),
     ("utils/imload.py", "_cv2"),
     ("cli/run.py", "main"),
     ("cli/run_video.py", "main"),
     ("cli/run_webcam.py", "main"),
+    ("train/augment.py", "random_scale"),
+    ("train/augment.py", "random_rotation"),
+    ("train/augment.py", "random_flip"),
+    ("train/augment.py", "resize_shortest_edge"),
+    ("train/augment.py", "random_crop"),
+    ("train/augment.py", "resize_fixed"),
+    ("train/coco_export.py", "write_synthetic_coco"),
 }
+# torch.utils.tensorboard: only the trainer's writer, with a log directory
+TENSORBOARD_FUNCTIONS = {("train/summaries.py", "make_writer")}
 
 
-def _cv2_import_sites(tree):
+def _cv2_import_sites(tree, module="cv2"):
     """The enclosing function's name (None at module level) of every
-    import of cv2 in a module's syntax tree."""
+    import of ``module`` (cv2 by default) in a module's syntax tree."""
     sites = []
 
     def visit(node, func):
@@ -81,7 +93,8 @@ def _cv2_import_sites(tree):
                 names = [child.module or ""]
             else:
                 names = []
-            if any(n.split(".")[0] == "cv2" for n in names):
+            if any(n == module or n.startswith(module + ".")
+                   for n in names):
                 sites.append(func)
             visit(child, child.name if isinstance(
                 child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
@@ -90,9 +103,7 @@ def _cv2_import_sites(tree):
     return sites
 
 
-def test_port_imports_cv2_only_inside_its_io_functions():
-    """No module of the port imports cv2 at import time; the functions
-    that do are the ones in ``CV2_FUNCTIONS``, and each still does."""
+def _port_import_sites(module):
     pkg = os.path.join(ROOT, "tfpose_tpu_torch")
     found = set()
     for dirpath, _, files in os.walk(pkg):
@@ -100,10 +111,26 @@ def test_port_imports_cv2_only_inside_its_io_functions():
             if name.endswith(".py"):
                 path = os.path.join(dirpath, name)
                 rel = os.path.relpath(path, pkg).replace(os.sep, "/")
-                for func in _cv2_import_sites(ast.parse(open(path).read())):
-                    assert func is not None, f"{rel} imports cv2 at import"
+                for func in _cv2_import_sites(ast.parse(open(path).read()),
+                                              module):
+                    assert func is not None, \
+                        f"{rel} imports {module} at import"
                     found.add((rel, func))
-    assert found == CV2_FUNCTIONS
+    return found
+
+
+def test_port_imports_cv2_only_inside_its_io_functions():
+    """No module of the port imports cv2 at import time; the functions
+    that do are the ones in ``CV2_FUNCTIONS``, and each still does."""
+    assert _port_import_sites("cv2") == CV2_FUNCTIONS
+
+
+def test_port_imports_tensorboard_only_inside_make_writer():
+    """``torch.utils.tensorboard`` (which pulls in the tensorboard
+    package, absent on the card machine) is imported only by the
+    trainer's ``make_writer``, when a log directory is given."""
+    assert _port_import_sites("torch.utils.tensorboard") == \
+        TENSORBOARD_FUNCTIONS
 
 
 def test_chip_smoke_imports_are_clean():

@@ -1,5 +1,5 @@
 """Console-script entry points of the port (``pyproject.toml``:
-``tfpose-torch-run``, ``-video``, ``-webcam``, ``-eval``), the
+``tfpose-torch-run``, ``-video``, ``-webcam``, ``-eval``, ``-train``), the
 counterparts of ``tfpose_tpu/cli/entry.py``."""
 
 from __future__ import annotations
@@ -22,4 +22,9 @@ def webcam_main():
 
 def eval_main():
     from tfpose_tpu_torch.cli.eval import main
+    main()
+
+
+def train_main():
+    from tfpose_tpu_torch.cli.train import main
     main()

@@ -13,8 +13,8 @@
   size with ``--multi-scale``), scored by the port's OKS AP (it carries
   no pycocotools).
 
-``--quantize`` (the JAX estimator's int8 backbone) is not ported and
-raises ``NotImplementedError`` (ROADMAP A12).
+``--quantize`` runs the int8 backbone (calibrated post-training
+quantisation, ``TfPoseEstimator(quantize=True)``).
 """
 
 from __future__ import annotations
@@ -165,7 +165,8 @@ def main(argv=None):
                              "decode) on N rendered scenes — the "
                              "trained-checkpoint learning gate")
     parser.add_argument("--quantize", action="store_true",
-                        help="int8 backbone: not ported (raises)")
+                        help="int8 PTQ backbone (calibrated on rendered "
+                             "scenes at the network size)")
     parser.add_argument("--params", type=str, default="",
                         help="msgpack params for --synthetic-e2e / "
                              "--coco-json (trained checkpoint export)")

@@ -7,8 +7,10 @@ constructor raises when no card is present rather than moving to the
 CPU. ``device="cpu"`` runs every kernel's plain version (the tests do).
 The backbone computes in fp32 (TF32 convolutions switched off around the
 forward) or, with ``dtype="bfloat16"``, in bf16 with fp32 parameters,
-rounding where flax rounds (``models/layers.py``); its maps are cast to
-fp32 and the decode stays fp32 either way.
+rounding where flax rounds (``models/layers.py``); with ``quantize=True``
+its convs compute in int8 (calibrated post-training quantisation,
+``models/quantize.py``). Its maps are cast to fp32 and the decode stays
+fp32 in every case.
 
 Entry points: ``inference`` (one image, also sets ``heatMat`` /
 ``pafMat``), ``inference_batch``, and for frames larger than the network
@@ -16,9 +18,6 @@ Entry points: ``inference`` (one image, also sets ``heatMat`` /
 scale in one backbone batch, maps merged on the device, one decode).
 ``PoseEstimator.estimate_paf`` is the reference's host-side decode of
 given peaks and maps.
-
-Not ported yet (ROADMAP A12): the int8 backbone; ``quantize=True``
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +39,10 @@ from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.core.types import BodyPart, Human, PoseArrays
 from tfpose_tpu_torch.models import get_checkpoint_path, get_network
 from tfpose_tpu_torch.models.layers import init_weights
+from tfpose_tpu_torch.models.quantize import (
+    default_calibration_images,
+    quantize_network,
+)
 from tfpose_tpu_torch.ops.assemble import Assembled
 from tfpose_tpu_torch.ops.decode import (
     decode,
@@ -121,8 +124,12 @@ class TfPoseEstimator:
         as the JAX estimator's option does, in place of the default
         resize equal to cv2's ``INTER_AREA``; ``inference_batch`` keeps
         the default, as in the JAX estimator.
-      quantize, calibration_images: the JAX estimator's int8 backbone,
-        not ported (ROADMAP A12): ``quantize=True`` raises.
+      quantize: the int8 backbone, as the JAX estimator's: the network's
+        fp32 forward calibrated on ``calibration_images`` on the device,
+        then every conv in int8 (``models/quantize.py``); composes with
+        ``dtype``, whose BatchNorm outputs stay in that type.
+      calibration_images: (N, H, W, 3) uint8; by default 8 rendered
+        scenes at ``target_size`` (``default_calibration_images``).
       device: torch device; ``None`` means ``"cuda"``.
     """
 
@@ -136,10 +143,6 @@ class TfPoseEstimator:
                  quantize: bool = False,
                  calibration_images: Optional[np.ndarray] = None,
                  device: Optional[str] = None):
-        if quantize:
-            raise NotImplementedError(
-                "the int8 backbone (quantize=True) is not ported yet "
-                "(ROADMAP A12)")
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
                              f"got {dtype!r}")
@@ -163,6 +166,13 @@ class TfPoseEstimator:
             logger.warning(
                 "no checkpoint at %s — running with random init", path)
         self.net.eval().to(self.device)
+        self.quantized = quantize
+        if quantize:
+            if calibration_images is None:
+                calibration_images = default_calibration_images(target_size)
+            quantize_network(self.net, calibration_images)
+            logger.info("int8 PTQ backbone enabled (calibrated on %d images)",
+                        len(calibration_images))
 
         self.heatMat: Optional[np.ndarray] = None
         self.pafMat: Optional[np.ndarray] = None

@@ -12,7 +12,8 @@ but the last of each branch, and no BatchNorm.
 The public layout is the JAX package's: the input is NHWC and
 ``concat_stage7`` = concat(heat 19, paf 38) is NHWC at stride 8; inside,
 the convs run NCHW. Submodule names are the flax names. ``dtype`` is
-the compute type (fp32 or bf16); the parameters stay fp32.
+the compute type (fp32 or bf16); the parameters stay fp32; ``quant`` is the
+JAX ``QuantConv`` mode of every conv (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,13 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from tfpose_tpu_torch.models.layers import Conv, max_pool, nhwc
+from tfpose_tpu_torch.models.layers import (
+    Conv,
+    max_pool,
+    nhwc,
+    set_compute_dtype,
+    set_quant_mode,
+)
 
 # VGG-19 prefix: (name, channels) per conv, "pool" for a 2x2 max-pool
 _VGG = [("conv1_1", 64), ("conv1_2", 64), "pool",
@@ -37,9 +44,9 @@ class CmuNetwork(nn.Module):
     the 57-channel ``concat_stage7`` and per-stage branch outputs."""
 
     def __init__(self, num_stages: int = 6,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 quant: str = "none"):
         super().__init__()
-        self.dtype = dtype  # compute type; the parameters stay fp32
         self.num_stages = num_stages
         ch = 3
         for layer in _VGG:
@@ -65,6 +72,9 @@ class CmuNetwork(nn.Module):
                         Conv(128, 128, (1, 1)))
                 setattr(self, f"Mconv7_stage{s}_L{li}",
                         Conv(128, out, (1, 1), relu=False))
+        # compute type (the parameters stay fp32) and quantisation mode
+        set_compute_dtype(self, dtype)
+        set_quant_mode(self, quant)
 
     def _branch(self, names, h: torch.Tensor) -> torch.Tensor:
         for name in names:

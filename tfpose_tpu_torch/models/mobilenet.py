@@ -12,7 +12,8 @@ conv_width=0.75 / conv_width2=0.50; ``mobilenet`` 1.0/1.0.
 The public layout is the JAX package's: the input is NHWC and
 ``concat_stage7`` = concat(heat 19, paf 38) is NHWC at stride 8; inside,
 the convs run NCHW. ``dtype`` is the compute type (fp32 or bf16, as
-flax's ``dtype``); the parameters stay fp32.
+flax's ``dtype``); the parameters stay fp32; ``quant`` is the
+JAX ``QuantConv`` mode of every conv (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +27,8 @@ from tfpose_tpu_torch.models.layers import (
     SeparableConv,
     max_pool,
     nhwc,
+    set_compute_dtype,
+    set_quant_mode,
 )
 
 _MIN_DEPTH = 8
@@ -37,9 +40,9 @@ class MobilenetNetwork(nn.Module):
     """MobileNet-v1-style two-branch pose network."""
 
     def __init__(self, conv_width: float = 0.75, conv_width2: float = 0.50,
-                 num_stages: int = 6, dtype: torch.dtype = torch.float32):
+                 num_stages: int = 6, dtype: torch.dtype = torch.float32,
+                 quant: str = "none"):
         super().__init__()
-        self.dtype = dtype  # compute type; the parameters stay fp32
 
         def depth(ch):
             return max(int(ch * conv_width), _MIN_DEPTH)
@@ -59,6 +62,9 @@ class MobilenetNetwork(nn.Module):
             in_ch = feat_ch if s == 1 else 38 + 19 + feat_ch
             setattr(self, f"MConv_Stage{s}",
                     CPMStage(in_ch, 38, 19, depth2(128), depth2(512)))
+        # compute type (the parameters stay fp32) and quantisation mode
+        set_compute_dtype(self, dtype)
+        set_quant_mode(self, quant)
 
     def forward(self, x: torch.Tensor) -> dict:
         """x: (N, H, W, 3) float -> {"concat_stage7": (N, H/8, W/8, 57),

@@ -14,7 +14,8 @@ The public layout is the JAX package's: the input is NHWC and
 the convs run NCHW. Submodule names are the flax names (``Conv``,
 ``Conv_bn``, ``expanded_conv_{i}/{expand,expand_bn,depthwise,dw_bn,
 project,project_bn}``, ``MConv_Stage{s}``). ``dtype`` is the compute
-type (fp32 or bf16); the parameters stay fp32.
+type (fp32 or bf16); the parameters stay fp32; ``quant`` is the
+JAX ``QuantConv`` mode of every conv (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +30,8 @@ from tfpose_tpu_torch.models.layers import (
     batch_norm,
     make_divisible,
     nhwc,
+    set_compute_dtype,
+    set_quant_mode,
 )
 from tfpose_tpu_torch.ops.resize import resize_bilinear
 
@@ -77,9 +80,9 @@ class MobilenetV2Network(nn.Module):
     """MobileNet-v2 two-branch pose network."""
 
     def __init__(self, conv_width: float = 1.4, refine_width: float = 1.0,
-                 num_stages: int = 6, dtype: torch.dtype = torch.float32):
+                 num_stages: int = 6, dtype: torch.dtype = torch.float32,
+                 quant: str = "none"):
         super().__init__()
-        self.dtype = dtype  # compute type; the parameters stay fp32
 
         def dm(ch: int) -> int:  # slim: multiplier with make_divisible
             return make_divisible(ch * conv_width, 8)
@@ -100,6 +103,9 @@ class MobilenetV2Network(nn.Module):
             in_ch = feat_ch if s == 1 else 38 + 19 + feat_ch
             setattr(self, f"MConv_Stage{s}",
                     CPMStage(in_ch, 38, 19, depth2(128), depth2(512)))
+        # compute type (the parameters stay fp32) and quantisation mode
+        set_compute_dtype(self, dtype)
+        set_quant_mode(self, quant)
 
     def forward(self, x: torch.Tensor) -> dict:
         """x: (N, H, W, 3) float -> {"concat_stage7": (N, H/8, W/8, 57),

@@ -1,5 +1,5 @@
 """Model registry — port of ``tfpose_tpu/models/registry.py``
-(reference ``tf_pose/networks.py``): ``get_network(name, dtype)``,
+(reference ``tf_pose/networks.py``): ``get_network(name, dtype, quant)``,
 ``model_wh('432x368')`` and checkpoint path resolution."""
 
 from __future__ import annotations
@@ -26,26 +26,27 @@ _DEFAULT_MODEL_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.dirname(os.path.abspath(__file__)))), "models")
 
 
-def get_network(name: str, dtype: torch.dtype = torch.float32) -> nn.Module:
+def get_network(name: str, dtype: torch.dtype = torch.float32,
+                quant: str = "none") -> nn.Module:
     """Instantiate a backbone by reference model name ("vgg" is an alias
     of "cmu"). ``dtype`` (``torch.float32`` or ``torch.bfloat16``) is the
-    compute type; the parameters are fp32 either way."""
+    compute type; the parameters are fp32 either way. ``quant``: "none",
+    "int8" (calibrated PTQ inference, ``models/quantize.py``) or "calib"
+    (the fp32 forward recording each conv's input absmax), as in JAX."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, "
                          f"got {dtype}")
+    kw = dict(dtype=dtype, quant=quant)
     if name in ("cmu", "vgg"):
-        return CmuNetwork(dtype=dtype)
+        return CmuNetwork(**kw)
     if name == "mobilenet":
-        return MobilenetNetwork(conv_width=1.0, conv_width2=1.0, dtype=dtype)
+        return MobilenetNetwork(conv_width=1.0, conv_width2=1.0, **kw)
     if name == "mobilenet_thin":
-        return MobilenetNetwork(conv_width=0.75, conv_width2=0.50,
-                                dtype=dtype)
+        return MobilenetNetwork(conv_width=0.75, conv_width2=0.50, **kw)
     if name == "mobilenet_v2_large":
-        return MobilenetV2Network(conv_width=1.4, refine_width=1.0,
-                                  dtype=dtype)
+        return MobilenetV2Network(conv_width=1.4, refine_width=1.0, **kw)
     if name == "mobilenet_v2_small":
-        return MobilenetV2Network(conv_width=0.50, refine_width=0.50,
-                                  dtype=dtype)
+        return MobilenetV2Network(conv_width=0.50, refine_width=0.50, **kw)
     raise ValueError(
         f"unknown model {name!r}; known: {', '.join(MODEL_NAMES)}")
 

@@ -7,7 +7,10 @@ weight matrices are built on the host and applied as two matmuls; an
 integer upscale is plain replication. Half-pixel bilinear weights serve
 the multi-scale image resize, and :func:`resize_area_u8` is the host
 resize the JAX estimator applies to an image smaller than the network
-(``cv2.INTER_AREA``). Tensors are (..., H, W, C), as in JAX.
+(``cv2.INTER_AREA``). The bilinear resize applies its two taps per
+output elementwise, so it rounds alike on every device (the int8
+backbone of mobilenet_v2 quantises its output). Tensors are
+(..., H, W, C), as in JAX.
 """
 
 from __future__ import annotations
@@ -77,11 +80,40 @@ def resize_area(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
                             _area_weights_np(w, out_w))
 
 
+@functools.lru_cache(maxsize=256)
+def _bilinear_taps_np(in_size: int, out_size: int):
+    """The two taps of each row of :func:`_bilinear_weights_np`: (first
+    index, second index, first weight, second weight); a row with one
+    nonzero weight gets a second tap of weight 0."""
+    w = _bilinear_weights_np(in_size, out_size)
+    taps = np.zeros((out_size, 2), np.int64)
+    wts = np.zeros((out_size, 2), np.float32)
+    for i, row in enumerate(w):
+        nz = np.flatnonzero(row)
+        if not 1 <= len(nz) <= 2:
+            raise ValueError("a bilinear row has one or two taps")
+        taps[i] = (nz[0], nz[-1])
+        wts[i, :len(nz)] = row[nz]
+    return taps[:, 0], taps[:, 1], wts[:, 0], wts[:, 1]
+
+
+def _two_taps(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
+    """``x[i0] * w0 + x[i1] * w1`` along ``dim``, each op rounded on its
+    own: the same bits on every device, where a matrix product's sum
+    order is the library's."""
+    i0, i1, w0, w1 = (torch.from_numpy(a).to(x.device) for a in taps)
+    shape = [1] * x.dim()
+    shape[dim] = -1
+    return (x.index_select(dim, i0) * w0.view(shape)
+            + x.index_select(dim, i1) * w1.view(shape))
+
+
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Half-pixel bilinear resize on (..., H, W, C)."""
+    """Half-pixel bilinear resize on (..., H, W, C), two taps per output
+    along each axis (:func:`_bilinear_weights_np`'s nonzero weights)."""
     *_, h, w, _ = x.shape
-    return _apply_separable(x, _bilinear_weights_np(h, out_h),
-                            _bilinear_weights_np(w, out_w))
+    x = _two_taps(x.float(), _bilinear_taps_np(h, out_h), -3)
+    return _two_taps(x, _bilinear_taps_np(w, out_w), -2)
 
 
 @functools.lru_cache(maxsize=256)
