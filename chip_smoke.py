@@ -93,14 +93,30 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      gradients on the card against the CPU's (B=4); the exported
      ``params.msgpack`` loaded by
      ``TfPoseEstimator`` on the card, whose maps equal the trainer's
-     network's.
+     network's;
+ 10. conversion and profiling, path by path with the launch counts
+     reset before each: the Datum shard that the JAX writer wrote
+     (``tests/fixtures/datum_jax.tpds``) re-serialized byte for byte, its
+     raw records unpacked and written again byte for byte, and
+     ``tfpose-torch-train --datum-shard`` on them (thin 64x80, B=4, 2
+     steps); TensorFlow's GraphDef (``tests/fixtures/graphdef_tf.pb``)
+     read bit for bit; ``thin368_coco`` written as a GraphDef, converted
+     by ``convert_pb_file`` (msgpack bytes equal to ``save_flax_msgpack``
+     of the variables) and loaded by an estimator whose ``inference`` x2
+     (K2) and ``inference_batch`` B=8 (K1, K3) give the checkpoint's
+     humans and maps bit for bit; ``trace`` of one ``inference`` naming
+     K2's kernel and cuDNN's convs; ``device_p50_ms`` of the thin forward
+     at most its CUDA-event median at B=1 (host-bound) and within a
+     factor 1.5 of it at B=32 (device-bound); ``amortized_ms``,
+     ``StageTimer``; ``get_flops`` equal on the card and the CPU.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 The last lines are the kernels driven, one JSON line per the kernels'
 numbers, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 the port only, and writes nothing outside ``tfpose_tpu_torch/_build/``
-(phase 9's checkpoints go to ``_build/chip_smoke_train/``).
+(phase 9's checkpoints go to ``_build/chip_smoke_train/``, phase 10's
+files to ``_build/chip_smoke_convert/``).
 """
 
 from __future__ import annotations
@@ -1005,10 +1021,15 @@ def main() -> int:
         for name, shape, fn, plain, (nbytes, ops) in cases:
             med, p90 = time_cuda(fn)
             pmed, pp90 = time_cuda(plain)
-            for _ in range(3):  # the profiler now and then loses records
+            # the profiler now and then loses a kernel's records, several
+            # attempts in a row: retry with a pause
+            for attempt in range(8):
                 dms, per = device_ms(name, profile_calls(fn, n=20)[3])
                 if dms is not None:
                     break
+                log(f"  no device time for {name} {shape} in profile "
+                    f"{attempt + 1}; again")
+                time.sleep(0.5)
             check(dms is not None, f"no device time for {name} {shape}")
             bms, by = bound_ms(nbytes, ops)
             log(f"time {name} {shape}: kernel median {med:.5f} ms p90 "
@@ -1518,6 +1539,203 @@ def main() -> int:
             f"max |d| {worst:.3g} of the largest (tolerance 0.15) over "
             f"{len(grads[1])} leaves")
         check(rel <= 1e-5 and worst <= 0.15, "train step differs from CPU")
+
+    from tfpose_tpu_torch.convert import graphdef
+    from tfpose_tpu_torch.convert.checkpoint import (
+        load_flax_msgpack, save_flax_msgpack)
+    from tfpose_tpu_torch.estimator import run_backbone
+    from tfpose_tpu_torch.ops.decode import decode
+    from tfpose_tpu_torch.pipeline.preprocess import prepare
+    from tfpose_tpu_torch.train import lmdb_dataset
+    from tfpose_tpu_torch.utils import profiling
+
+    with phase("10 conversion and profiling"):
+        work = os.path.join(ROOT, "tfpose_tpu_torch", "_build",
+                            "chip_smoke_convert")
+        trace_dir = os.path.join(work, "trace")
+        os.makedirs(trace_dir, exist_ok=True)
+        for name in os.listdir(trace_dir):
+            os.remove(os.path.join(trace_dir, name))
+        fixtures = os.path.join(ROOT, "tests", "fixtures")
+
+        # Datum records that the JAX writer wrote: 4 raw, then 4 PNG
+        shard = os.path.join(fixtures, "datum_jax.tpds")
+        with open(shard, "rb") as f:
+            raw = f.read()
+        payloads, pos = [], 4
+        while pos < len(raw):
+            n = int.from_bytes(raw[pos:pos + 4], "little")
+            payloads.append(raw[pos + 4:pos + 4 + n])
+            pos += 4 + n
+        records = list(lmdb_dataset.DatumShardReader(shard))
+        check(len(records) == 8 and [d.encoded for d in records]
+              == [False] * 4 + [True] * 4, "datum fixture: records")
+        for d, payload in zip(records, payloads):
+            check(d.SerializeToString() == payload,
+                  "a Datum record re-serializes to other bytes")
+        samples = [lmdb_dataset.unpack_datum(d) for d in records[:4]]
+        raw_shard = os.path.join(work, "raw.tpds")
+        lmdb_dataset.write_datum_shard(raw_shard, samples, encoded=False)
+        with open(raw_shard, "rb") as f:
+            check(f.read() == raw[:4 + sum(4 + len(p) for p in payloads[:4])],
+                  "the port's shard of the raw records differs")
+        log(f"datum: {len(records)} records of {shard} re-serialize byte for "
+            f"byte; the 4 raw ones unpack ({samples[0][0].shape} BGR, people "
+            f"{[len(j) for _, j in samples]}) and write the fixture's raw "
+            f"shard again ({os.path.getsize(raw_shard)} B); the PNG ones are "
+            f"not decoded (no cv2 here)")
+        t = time.perf_counter()
+        st = drive("train_datum", lambda: train_cli.main([
+            "--datum-shard", raw_shard, "--no-augment", "--model",
+            "mobilenet_thin", "--input-size", "64x80", "--batchsize", "4",
+            "--max-steps", "2", "--log-every", "1"]))
+        loss = [h["loss"] for h in st.history]
+        check(st.step == 2 and len(loss) == 2
+              and all(np.isfinite(v) for v in loss)
+              and all(p.is_cuda for p in st.net.parameters()),
+              "train --datum-shard")
+        log(f"train --datum-shard: thin 64x80 B=4, 2 steps on the card in "
+            f"{time.perf_counter() - t:.2f} s, loss {loss}")
+
+        # a GraphDef that TensorFlow wrote
+        consts = graphdef.extract_consts(graphdef.load_graphdef(
+            os.path.join(fixtures, "graphdef_tf.pb")))
+        expected = np.load(os.path.join(fixtures, "graphdef_tf.npz"))
+        names = [str(n) for n in expected["names"]]
+        check(sorted(consts) == sorted(names), "graphdef fixture: names")
+        for i, name in enumerate(names):
+            want = expected[f"a{i}"]
+            check(consts[name].dtype == want.dtype
+                  and consts[name].shape == want.shape
+                  and consts[name].tobytes() == want.tobytes(),
+                  f"graphdef fixture: {name} differs")
+        log(f"graphdef: {len(consts)} consts of TensorFlow's graph equal "
+            f"MakeNdarray's bit for bit ({', '.join(names)})")
+
+        # thin368_coco -> flat GraphDef -> convert_pb_file -> estimator
+        t = time.perf_counter()
+        variables = load_flax_msgpack(CHECKPOINT)
+        pb_path = os.path.join(work, "thin368_graph_opt.pb")
+        with open(pb_path, "wb") as f:
+            f.write(graphdef.variables_to_graphdef(
+                variables, scope="Openpose",
+                read_nodes=True).SerializeToString())
+        converted = os.path.join(work, "thin368_converted.msgpack")
+        reference = os.path.join(work, "thin368_reference.msgpack")
+        graphdef.convert_pb_file(pb_path, "mobilenet_thin", converted)
+        save_flax_msgpack(reference, variables)
+        with open(converted, "rb") as f, open(reference, "rb") as g, \
+                open(CHECKPOINT, "rb") as h:
+            out = f.read()
+            check(out == g.read(), "converted msgpack differs")
+            check(out == h.read(), "converted msgpack is not the checkpoint")
+        log(f"thin368_coco as a GraphDef ({os.path.getsize(pb_path)} B, "
+            f"Openpose scope, /read nodes) -> convert_pb_file -> msgpack "
+            f"equal to save_flax_msgpack of the variables and to the "
+            f"checkpoint file ({os.path.getsize(converted)} B) in "
+            f"{time.perf_counter() - t:.2f} s")
+        est_conv = TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
+                                   params_path=converted)
+        maps = []
+
+        def conv_inference():
+            out = []
+            for img in imgs[:2]:
+                out.append(est_conv.inference(img, upsample_size=4.0))
+                maps.append((est_conv.heatMat, est_conv.pafMat))
+            return out
+
+        got = drive("convert_inference x2", conv_inference)
+        launched("convert_inference x2", "smooth_nms")
+        for i, img in enumerate(imgs[:2]):
+            same_humans(got[i], est.inference(img, upsample_size=4.0),
+                        f"converted inference image {i}")
+            check(np.array_equal(maps[i][0], est.heatMat)
+                  and np.array_equal(maps[i][1], est.pafMat),
+                  "converted heatMat/pafMat differ")
+        got = drive("convert_batch B=8", lambda: est_conv.inference_batch(
+            imgs, upsample_size=4.0))
+        launched("convert_batch B=8", "smooth_nms_topk_raw",
+                 "score_candidates_raw")
+        for i, (g, w) in enumerate(zip(got, est.inference_batch(
+                imgs, upsample_size=4.0))):
+            same_humans(g, w, f"converted inference_batch image {i}")
+        with torch.inference_mode():
+            check(torch.equal(est_conv._forward(np.stack(imgs), 368, 432),
+                              est._forward(np.stack(imgs), 368, 432)),
+                  "converted maps differ")
+        log(f"converted estimator: humans of inference x2 and "
+            f"inference_batch B=8 equal the checkpoint's "
+            f"({sum(len(h) for h in got)} humans in the batch), maps bit "
+            f"for bit")
+
+        # profiling (a trace that lost K2's records is taken again, as
+        # phase 5 does)
+        for attempt in range(4):
+            with profiling.trace(trace_dir):
+                est.inference(imgs[0], upsample_size=4.0)
+            durs = profiling.device_event_durations_ms(trace_dir)
+            if any("smooth_nms_kernel" in k for k in durs):
+                break
+            log(f"  trace {attempt + 1} lists no smooth_nms_kernel; again")
+            time.sleep(0.5)
+        top = sorted(durs.items(), key=lambda kv: -sum(kv[1]))
+        for name, ds in top[:6]:
+            log(f"  trace: {sum(ds):.4f} ms x{len(ds)}  {name[:90]}")
+        check(any("smooth_nms_kernel" in k for k in durs),
+              "the trace lists no smooth_nms_kernel")
+        convs = [k for k in durs if any(w in k.lower() for w in (
+            "conv", "fprop", "implicit_gemm", "cudnn"))]
+        check(bool(convs), "the trace lists no cuDNN conv kernel")
+        log(f"trace of one thin inference: {len(durs)} device event names, "
+            f"{sum(len(v) for v in durs.values())} events, "
+            f"{sum(sum(v) for v in durs.values()):.3f} ms on the device; "
+            f"smooth_nms_kernel {durs[next(k for k in durs if 'smooth_nms_kernel' in k)]} "
+            f"ms; {len(convs)} conv kernel names, e.g. {convs[0][:70]} "
+            f"[{smi}]")
+        x = prepare(torch.from_numpy(imgs[0][None]).to(dev), 368, 432)
+
+        def forward(t):
+            return run_backbone(est.net, t)
+
+        p50 = profiling.device_p50_ms(forward, (x,))
+        med, p90 = time_cuda(lambda: forward(x))
+        log(f"thin forward 432x368 B=1: device_p50_ms {p50:.4f} ms (each "
+            f"call's device-busy time, traced) vs CUDA events median "
+            f"{med:.4f} ms (p90 {p90:.4f}): {p50 / med:.3f}, host-bound "
+            f"[{smi}]")
+        check(p50 <= 1.1 * med, "device time above the call's own time")
+        # at B=32 the forward is device-bound, so the events time the
+        # device too and the two must agree
+        x32 = prepare(torch.from_numpy(np.stack(imgs * 4)).to(dev), 368, 432)
+        p50 = profiling.device_p50_ms(forward, (x32,), n_runs=10)
+        med, p90 = time_cuda(lambda: forward(x32), reps=10, inner=2)
+        ratio = p50 / med
+        log(f"thin forward 432x368 B=32: device_p50_ms {p50:.4f} ms vs "
+            f"CUDA events median {med:.4f} ms (p90 {p90:.4f}), ratio "
+            f"{ratio:.3f} (bound 1/1.5 to 1.5) [{smi}]")
+        check(1 / 1.5 <= ratio <= 1.5, f"device_p50_ms / events {ratio}")
+        xs = prepare(torch.from_numpy(np.stack(imgs)).to(dev), 368, 432)
+        am = profiling.amortized_ms(
+            lambda t: forward(t[None])[..., :19].amax(), xs)
+        log(f"amortized_ms of the thin forward over 8 frames (slope 8 vs "
+            f"2): {am:.4f} ms per frame [{smi}]")
+        timer = profiling.StageTimer()
+        for img in imgs:
+            with timer.section("forward"):
+                out = est._forward(img[None], 368, 432)[0]
+                torch.cuda.synchronize()
+            with timer.section("decode"):
+                decode(out, 184, 216, params).coords.cpu()
+        log(f"StageTimer, thin 432x368 x8 [{smi}]:\n{timer.report()}")
+        t = time.perf_counter()
+        flops = est.get_flops()
+        flops_cpu = est_cpu.get_flops()
+        check(flops == flops_cpu, f"get_flops {flops} on the card, "
+              f"{flops_cpu} on the CPU")
+        log(f"get_flops thin 432x368: {flops} on the card and on the CPU "
+            f"({flops / 1e9:.3f} GFLOP, convolutions; "
+            f"{time.perf_counter() - t:.2f} s)")
 
     # every path's launches, the serving and bf16 paths included
     for entry in kernels:

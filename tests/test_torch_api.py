@@ -220,11 +220,52 @@ def test_runner_infer_on_an_array_matches_jax(model_dir):
                                 "cpu").target_size == (432, 368)
 
 
-def test_runner_infer_rejects_a_path(model_dir):
-    with pytest.raises(ValueError, match="image decoder"):
-        runner.infer("images/p1.jpg", device="cpu")
-    with pytest.raises(Exception, match="can not be read"):
-        runner.infer(None, device="cpu")
+_P1 = os.path.join(os.path.dirname(__file__), "..", "images", "p1.jpg")
+
+
+def test_runner_infer_on_a_path_matches_jax(model_dir):
+    """A file path is read as ``tfpose_tpu.runner.infer`` reads it
+    (``read_imgfile``, then the estimator's resize to the network)."""
+    got = runner.infer(_P1, "mobilenet_thin", "160x160", 4.0, device="cpu")
+    want = jax_runner.infer(_P1, "mobilenet_thin", "160x160", 4.0)
+    assert got
+    _assert_same_humans(got, want)
+    _assert_same_humans(tfpose_tpu_torch.infer(
+        _P1, "mobilenet_thin", "160x160", 4.0, device="cpu"), want)
+
+
+def test_runner_infer_rejects_a_path(model_dir, tmp_path, monkeypatch):
+    """A path that cannot be read raises as JAX's does; without cv2 a
+    path raises naming cv2 (an array needs no cv2)."""
+    for bad in (str(tmp_path / "missing.jpg"), None):
+        with pytest.raises(Exception, match="can not be read"):
+            jax_runner.infer(bad)
+        with pytest.raises(Exception, match="can not be read"):
+            runner.infer(bad, device="cpu")
+    monkeypatch.setitem(sys.modules, "cv2", None)
+    with pytest.raises(RuntimeError, match="cv2"):
+        runner.infer(_P1, "mobilenet_thin", "160x160", device="cpu")
+    img = _scenes(1, 160, 160, seed=3)[0]
+    assert runner.infer(img, "mobilenet_thin", "160x160", 4.0, device="cpu")
+
+
+def test_package_names_equal_jax():
+    """``from tfpose_tpu_torch import BodyPart, Human`` as from the JAX
+    package, and ``ops`` lists and imports the same six submodules."""
+    import tfpose_tpu
+    import tfpose_tpu.ops as jax_ops
+    import tfpose_tpu_torch.ops as ops
+
+    public = {n for n in dir(tfpose_tpu) if not n.startswith("_")}
+    assert public - {"cli", "compat", "convert", "core", "estimator",
+                     "evaluation", "models", "ops", "oracle", "parallel",
+                     "pipeline", "runner", "serving", "train", "utils"} == \
+        {"BodyPart", "Human", "infer"}
+    assert tfpose_tpu_torch.BodyPart is BodyPart
+    assert tfpose_tpu_torch.Human is Human
+    assert ops.__all__ == jax_ops.__all__
+    for name in jax_ops.__all__:
+        assert getattr(ops, name).__name__ == f"tfpose_tpu_torch.ops.{name}"
 
 
 # ---------------------------------------------------------------------------

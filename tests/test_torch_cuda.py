@@ -6,6 +6,7 @@ whose Python has no jax for ``tests/conftest.py``:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
+import os
 import threading
 
 import numpy as np
@@ -455,3 +456,69 @@ def test_train_step_on_the_card_matches_the_cpu(nets):
     for (k, a), b in zip(cpu.named_buffers(), card.buffers()):
         if a.is_floating_point():
             assert (b.cpu() - a).abs().max().item() <= 1e-5, k
+
+
+# ---- Datum and GraphDef records, and the profiling helpers, on the card
+
+_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "fixtures")
+
+
+def test_datum_records_train_on_the_card(nets, tmp_path):
+    """The JAX writer's shard (no protobuf on the card): every record
+    re-serializes byte for byte, the raw ones are written again byte
+    for byte and feed ``--datum-shard`` for one step on the card."""
+    from tfpose_tpu_torch.cli import train as train_cli
+    from tfpose_tpu_torch.train import lmdb_dataset
+
+    shard = os.path.join(_FIXTURES, "datum_jax.tpds")
+    raw = open(shard, "rb").read()
+    records = list(lmdb_dataset.DatumShardReader(shard))
+    assert b"TPDS" + b"".join(
+        len(d.SerializeToString()).to_bytes(4, "little")
+        + d.SerializeToString() for d in records) == raw
+    path = str(tmp_path / "raw.tpds")
+    lmdb_dataset.write_datum_shard(path, [lmdb_dataset.unpack_datum(d)
+                                          for d in records[:4]], False)
+    assert raw.startswith(open(path, "rb").read())
+    state = train_cli.main(["--datum-shard", path, "--no-augment",
+                            "--input-size", "64x80", "--batchsize", "4",
+                            "--max-steps", "1", "--log-every", "1"])
+    assert state.step == 1 and next(state.net.parameters()).is_cuda
+
+
+def test_graphdef_consts_to_the_card(nets):
+    """TensorFlow's graph read by the port's codec, its consts moved to
+    the card and back bit for bit."""
+    from tfpose_tpu_torch.convert import graphdef
+
+    consts = graphdef.extract_consts(graphdef.load_graphdef(
+        os.path.join(_FIXTURES, "graphdef_tf.pb")))
+    expected = np.load(os.path.join(_FIXTURES, "graphdef_tf.npz"))
+    for i, name in enumerate(str(n) for n in expected["names"]):
+        back = torch.from_numpy(consts[name]).cuda().cpu().numpy()
+        assert back.tobytes() == expected[f"a{i}"].tobytes(), name
+
+
+def test_profiling_on_the_card(thin368, tmp_path):
+    """``trace`` lists K2's kernel and cuDNN's convs by name; the device
+    timers give positive times; ``get_flops`` equals the CPU's."""
+    from tfpose_tpu_torch.estimator import run_backbone
+    from tfpose_tpu_torch.utils import profiling
+
+    img = render_frames(np.random.default_rng(3), 1, 368, 432)[0]
+    with profiling.trace(str(tmp_path)):
+        thin368.inference(img, upsample_size=4.0)
+    durs = profiling.device_event_durations_ms(str(tmp_path))
+    assert any("smooth_nms_kernel" in k for k in durs)
+    assert profiling.device_event_durations_ms(str(tmp_path), "zz") == {}
+    x = torch.zeros(1, 368, 432, 3, device="cuda")
+    p50 = profiling.device_p50_ms(lambda t: run_backbone(thin368.net, t),
+                                  (x,), n_runs=5)
+    am = profiling.amortized_ms(lambda t: t.sum(), torch.ones(
+        8, 1024, device="cuda"))
+    assert 0 < p50 < 1e3 and am > 0
+    cpu = TfPoseEstimator("mobilenet_thin", target_size=(96, 80),
+                          device="cpu")
+    card = TfPoseEstimator("mobilenet_thin", target_size=(96, 80))
+    assert card.get_flops() == cpu.get_flops() > 0

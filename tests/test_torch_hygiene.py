@@ -1,7 +1,7 @@
 """Import hygiene of the port: ``tfpose_tpu_torch`` and ``chip_smoke.py``
-load no jax, flax, optax, orbax, msgpack, cv2, tensorboard or
-``tfpose_tpu`` module, and the chip run refuses to start without a card
-or outside a checkout."""
+load no jax, flax, optax, orbax, msgpack, cv2, tensorboard, tensorflow,
+protobuf (``google``), lmdb or ``tfpose_tpu`` module, and the chip run
+refuses to start without a card or outside a checkout."""
 
 import ast
 import os
@@ -12,13 +12,15 @@ import sys
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "cv2",
-             "tensorboard", "tfpose_tpu")
+             "tensorboard", "tensorflow", "google", "lmdb", "tfpose_tpu")
 
 # Runs in a fresh interpreter: block the forbidden packages at import
-# time, then run the payload and report what loaded.
+# time, then run the payload and report what it loaded (site start-up
+# may already hold namespace modules, e.g. ``google`` from a .pth file).
 _GUARD = """
 import sys
 FORBIDDEN = {forbidden!r}
+BEFORE = set(sys.modules)
 
 class Guard:
     def find_spec(self, name, path=None, target=None):
@@ -29,7 +31,8 @@ class Guard:
 sys.meta_path.insert(0, Guard())
 sys.path.insert(0, {root!r})
 {payload}
-bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN)
+bad = sorted(m for m in set(sys.modules) - BEFORE
+             if m.split(".")[0] in FORBIDDEN)
 assert not bad, bad
 print("CLEAN")
 """
@@ -61,7 +64,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 # the only places the port may import cv2, inside these functions: the
 # service's JPEG payload decode, the CLIs' file, video and window I/O,
-# and the training data's augmentations and PNG export
+# the training data's augmentations and PNG export, and the Datum
+# records' PNG encode and decode
 CV2_FUNCTIONS = {
     ("serving/service.py", "_decode_payload"),
     ("utils/imload.py", "_cv2"),
@@ -75,6 +79,8 @@ CV2_FUNCTIONS = {
     ("train/augment.py", "random_crop"),
     ("train/augment.py", "resize_fixed"),
     ("train/coco_export.py", "write_synthetic_coco"),
+    ("train/lmdb_dataset.py", "_png_encode"),
+    ("train/lmdb_dataset.py", "_png_decode"),
 }
 # torch.utils.tensorboard: only the trainer's writer, with a log directory
 TENSORBOARD_FUNCTIONS = {("train/summaries.py", "make_writer")}

@@ -90,6 +90,24 @@ def test_downscale_area_matches_cv2_inter_area(h, w, max_share):
 
 
 @pytest.mark.parametrize("h, w, oh, ow", [
+    (480, 640, 160, 160), (480, 640, 240, 320), (480, 640, 96, 128),
+    (480, 640, 480, 160), (72, 90, 8, 9), (736, 864, 368, 432)])
+def test_downscale_area_at_integer_factors_equals_cv2(h, w, oh, ow):
+    """At integer factors cv2.INTER_AREA takes its fast path: the int
+    block sum, (sum + 2) >> 2 at 2 x 2, else sum * float(1/area) rounded
+    half to even; the port equals it bit for bit (a 640x480 photo to
+    160x160, 3 x 4, rounded half up, differed in 374 of 76800 values)."""
+    img = _photo(h + w, h, w)
+    want = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_AREA)
+    np.testing.assert_array_equal(
+        preprocess.downscale_area(_t(img), oh, ow).numpy(), want)
+    np.testing.assert_array_equal(
+        preprocess.downscale_area(_t(np.stack([img, img[::-1]])), oh,
+                                  ow).numpy()[1],
+        cv2.resize(img[::-1], (ow, oh), interpolation=cv2.INTER_AREA))
+
+
+@pytest.mark.parametrize("h, w, oh, ow", [
     (60, 70, 80, 96), (300, 250, 368, 432), (37, 41, 368, 432),
     (367, 431, 368, 432), (1, 1, 5, 3),           # enlarging
     (500, 300, 368, 432), (200, 600, 368, 432),   # mixed

@@ -243,7 +243,8 @@ def test_synthetic_training_loss_decreases(dtype):
 def test_train_cli_remote_data_and_logdir(tmp_path):
     """``train`` consuming a data worker's batches, in bf16, writing
     TensorBoard scalars and a prediction panel (``train.py``'s test);
-    more than one card's worth of mesh, and Datum shards, raise."""
+    more than one card's worth of mesh raises, and so does a Datum shard
+    that does not exist (``tests/test_torch_datum.py`` trains on one)."""
     rng = np.random.default_rng(0)
 
     def batches():
@@ -271,8 +272,9 @@ def test_train_cli_remote_data_and_logdir(tmp_path):
     assert os.path.getsize(os.path.join(logdir, events[0])) > 500
     with pytest.raises(ValueError, match="one card"):
         train_cli.main(["--mesh-data", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="A14"):
-        train_cli.main(["--datum-shard", "x", "--device", "cpu"])
+    with pytest.raises(FileNotFoundError):
+        train_cli.main(["--datum-shard", str(tmp_path / "x.tpds"),
+                        "--device", "cpu"])
 
 
 def test_train_cli_resumes_and_exports_for_jax(tmp_path):

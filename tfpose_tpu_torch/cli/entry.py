@@ -1,5 +1,6 @@
 """Console-script entry points of the port (``pyproject.toml``:
-``tfpose-torch-run``, ``-video``, ``-webcam``, ``-eval``, ``-train``), the
+``tfpose-torch-run``, ``-video``, ``-webcam``, ``-eval``, ``-train``,
+``-convert``, ``-dataworker``), the
 counterparts of ``tfpose_tpu/cli/entry.py``."""
 
 from __future__ import annotations
@@ -27,4 +28,14 @@ def eval_main():
 
 def train_main():
     from tfpose_tpu_torch.cli.train import main
+    main()
+
+
+def convert_main():
+    from tfpose_tpu_torch.cli.convert import main
+    main()
+
+
+def dataworker_main():
+    from tfpose_tpu_torch.cli.dataworker import main
     main()

@@ -1,8 +1,9 @@
 """Training CLI — counterpart of the repo's ``train.py`` (reference
 ``tf_pose/train.py``): ``--model --batchsize --lr --max-steps
---checkpoint-dir``, data from COCO (``--coco-json --img-dir``), remote
-data workers (``--remote-data``) or ``--synthetic`` rendered scenes, on
-one device (``--device``, the CUDA card by default).
+--checkpoint-dir``, data from COCO (``--coco-json --img-dir``), a Caffe
+Datum record shard (``--datum-shard``), remote data workers
+(``--remote-data``) or ``--synthetic`` rendered scenes, on one device
+(``--device``, the CUDA card by default).
 
     tfpose-torch-train --synthetic --input-size 368x368 --batchsize 16 \\
         --max-steps 1000 --checkpoint-dir ckpt
@@ -10,8 +11,8 @@ one device (``--device``, the CUDA card by default).
 The flags and defaults are the JAX script's. What differs:
 
   * one card, so ``--mesh-data`` / ``--mesh-spatial`` above 1 raise;
-  * ``--datum-shard`` (Caffe Datum / LMDB records) is not ported yet
-    (ROADMAP A14) and raises ``NotImplementedError``;
+  * a ``--datum-shard`` with fewer records than ``--batchsize`` raises
+    (it would yield no batch);
   * ``--checkpoint-dir`` keeps the train state (step, parameters, BN
     statistics, Adam moments) as ``torch.save`` files ``<step>.pt``, the
     last three, in place of orbax; ``--resume`` takes a step number or
@@ -93,6 +94,16 @@ def synthetic_batches(batch_size, wh, rng, sigma=8.0,
                "paf": np.stack(pafs)}
 
 
+def epochs(make_dataset):
+    """Endless batches of ``make_dataset(seed)``, the seed advancing per
+    epoch: a fixed seed would replay identical augmentations and order
+    every pass."""
+    ep = 0
+    while True:
+        yield from make_dataset(ep)
+        ep += 1
+
+
 class Checkpoints:
     """Train states as ``<dir>/<step>.pt`` (``torch.save`` of
     ``TrainState.state_dict``), keeping the newest ``max_to_keep``."""
@@ -156,8 +167,8 @@ def main(argv=None):
     parser.add_argument("--coco-json", type=str, default="")
     parser.add_argument("--img-dir", type=str, default="")
     parser.add_argument("--datum-shard", type=str, default="",
-                        help="Caffe-Datum record shard: not ported yet "
-                             "(ROADMAP A14), raises")
+                        help="train from a Caffe-Datum record shard "
+                             "(train/lmdb_dataset.py write_datum_shard)")
     parser.add_argument("--no-augment", action="store_true",
                         help="disable the pose_augment chain (fixed "
                              "resize only)")
@@ -204,10 +215,6 @@ def main(argv=None):
     if args.mesh_data > 1 or args.mesh_spatial > 1:
         raise ValueError("the port trains on one card: --mesh-data and "
                          "--mesh-spatial must be at most 1")
-    if args.datum_shard:
-        raise NotImplementedError("Caffe Datum / LMDB training data "
-                                  "(--datum-shard) is not ported yet "
-                                  "(ROADMAP A14)")
     device = torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card available; pass --device cpu")
@@ -239,6 +246,10 @@ def main(argv=None):
     logger.info("training %s at %dx%d on %s", args.model, w, h, device)
 
     rng = np.random.default_rng(0)
+    dataset_kw = dict(input_size=(w, h), batch_size=args.batchsize,
+                      augment=not args.no_augment,
+                      device_targets=args.device_targets,
+                      uint8=args.uint8_feed)
     prefetch_wrap = False
     if args.remote_data:
         from tfpose_tpu_torch.train.dataworker import RemoteBatches
@@ -246,6 +257,17 @@ def main(argv=None):
                  for hp in args.remote_data.split(",")]
         batches = iter(RemoteBatches(addrs))
         logger.info("consuming remote batches from %s", addrs)
+    elif args.datum_shard:
+        from tfpose_tpu_torch.train.lmdb_dataset import (
+            DatumPoseDataset, DatumShardReader)
+        reader = DatumShardReader(args.datum_shard)
+        logger.info("%d datum records", len(reader))
+        if len(reader) < args.batchsize:
+            raise ValueError(f"{args.datum_shard}: {len(reader)} records, "
+                             f"fewer than --batchsize {args.batchsize}")
+        batches = epochs(lambda ep: DatumPoseDataset(reader, seed=ep,
+                                                     **dataset_kw))
+        prefetch_wrap = True
     elif args.synthetic or not args.coco_json:
         if args.device_targets:
             batches = synthetic_joint_batches(
@@ -262,19 +284,7 @@ def main(argv=None):
             PoseDataset, load_coco_annotations)
         anns = load_coco_annotations(args.coco_json, args.img_dir)
         logger.info("%d annotated images", len(anns))
-
-        def epochs():
-            ep = 0
-            while True:
-                # advance the seed per epoch: a fixed seed would replay
-                # identical augmentations/order every pass
-                yield from PoseDataset(anns, (w, h), args.batchsize,
-                                       augment=not args.no_augment,
-                                       seed=ep,
-                                       device_targets=args.device_targets,
-                                       uint8=args.uint8_feed)
-                ep += 1
-        batches = epochs()
+        batches = epochs(lambda ep: PoseDataset(anns, seed=ep, **dataset_kw))
         prefetch_wrap = True
     if prefetch_wrap and args.prefetch:
         # overlap host-side rendering / image read + augment + rasterize

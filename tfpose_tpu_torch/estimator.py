@@ -361,3 +361,22 @@ class TfPoseEstimator:
         levels = float(2 ** bits - 1)
         img = npimg.astype(np.float32) / 255.0
         return (np.round(img * levels) / levels * 255.0).astype(np.uint8)
+
+    def get_flops(self) -> int:
+        """FLOPs of one forward and decode at ``target_size`` (upsample
+        4), as ``torch.utils.flop_counter.FlopCounterMode`` counts them:
+        2 per multiply-add of each convolution and matmul. The decode at
+        an integer ratio adds none (its work is elementwise, top-K and
+        the decode kernels), so the figure is the backbone's convs; it
+        runs on the estimator's device and is the same on every device.
+        The JAX estimator's figure is XLA's cost analysis, which also
+        counts elementwise work (reference: ``tf.profiler``)."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        w, h = self.target_size
+        up_h, up_w = h // 8 * 4, w // 8 * 4
+        img = np.zeros((1, h, w, 3), np.uint8)
+        with FlopCounterMode(display=False) as counter:
+            net_out = self._forward(img, h, w)[0]
+            decode(net_out, up_h, up_w, self.decode_params)
+        return int(counter.get_total_flops())

@@ -2,8 +2,8 @@
 (reference ``tf_pose/runner.py``): ``infer(image, model, resize,
 resize_out_ratio)`` plus a cached estimator factory.
 
-The port carries no image decoder (the card machine has no cv2), so
-``infer`` takes an image array; a file path raises ``ValueError``.
+A file path is read with ``utils/imload.py:read_imgfile``, which needs
+cv2 (absent on the card machine: there, pass the decoded array).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 from tfpose_tpu_torch.core.types import Human
 from tfpose_tpu_torch.estimator import TfPoseEstimator
 from tfpose_tpu_torch.models import model_wh
+from tfpose_tpu_torch.utils.imload import read_imgfile
 
 _estimators = {}
 
@@ -36,13 +37,11 @@ def get_estimator(model: str = "mobilenet_thin", resize: str = "0x0",
 def infer(image: Union[str, np.ndarray], model: str = "mobilenet_thin",
           resize: str = "0x0", resize_out_ratio: float = 4.0,
           device: Optional[str] = None) -> List[Human]:
-    """Estimate poses on one image array (H, W, 3) uint8 — reference
-    ``tf_pose.runner.infer``."""
+    """Estimate poses on one image, a path or an (H, W, 3) uint8 BGR
+    array — reference ``tf_pose.runner.infer``. Reading a path needs
+    cv2 (``RuntimeError`` without it)."""
     if isinstance(image, str):
-        raise ValueError(
-            f"infer({image!r}): a file path needs an image decoder, which "
-            "tfpose_tpu_torch does not carry; decode the image and pass "
-            "the (H, W, 3) uint8 array")
+        image = read_imgfile(image, None, None)
     if image is None:
         raise Exception("Image can not be read.")
     e = get_estimator(model, resize, device)

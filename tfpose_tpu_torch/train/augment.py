@@ -97,11 +97,15 @@ def random_crop(img, joints, wh: Tuple[int, int], rng):
 
 
 def resize_fixed(img, joints, wh: Tuple[int, int]):
-    import cv2
-
     tw, th = wh
     h, w = img.shape[:2]
-    img = cv2.resize(img, (tw, th), interpolation=cv2.INTER_AREA)
+    if (h, w) == (th, tw):
+        # cv2.resize to the same size is a copy; so it needs no cv2
+        img = img.copy()
+    else:
+        import cv2
+
+        img = cv2.resize(img, (tw, th), interpolation=cv2.INTER_AREA)
     return img, joints * np.asarray([tw / w, th / h])
 
 
