@@ -108,7 +108,32 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      K2's kernel and cuDNN's convs; ``device_p50_ms`` of the thin forward
      at most its CUDA-event median at B=1 (host-bound) and within a
      factor 1.5 of it at B=32 (device-bound); ``amortized_ms``,
-     ``StageTimer``; ``get_flops`` equal on the card and the CPU.
+     ``StageTimer``; ``get_flops`` equal on the card and the CPU;
+ 11. mesh (``parallel/``), ranks started by ``launch`` (``spawn``; the
+     rank bodies are this script's top-level functions), each counting
+     its kernels' launches per path (``launches_by_path`` keys
+     ``mesh <leg> <path>/rank<r>``): NCCL with one rank on the card
+     (``BatchedEvaluator(mesh=make_mesh())`` with thin368_coco on 16
+     rendered 432x368 scenes, its humans and detections equal to the
+     unsharded evaluator's exactly; two train steps of the seeded thin at
+     368x368, B=16, the state equal to the unsharded steps' bit for bit,
+     with cuDNN's deterministic algorithms in both); gloo with two ranks
+     sharing the card (the thin368 forward of the 16 scenes on a (1 x 2)
+     mesh, row halos exchanged, within atol 1e-4 of the unsharded
+     forward; the evaluator on (2 x 1), every rank's humans equal to the
+     unsharded ones: parts exact, coords 1e-6, scores 1e-4); gloo with
+     four ranks sharing the card (one train step on (2 x 2) against the
+     unsharded step: loss rtol 1e-5, BN statistics rtol 1e-5 with atol
+     1e-7, parameters atol 2.1e-4, gradients through Adam's first moment
+     within 0.15 of the largest, the four states equal bit for bit); the
+     collectives' and one halo exchange's host times;
+ 12. parity sweep (``evaluation/parity_sweep.py``) on the card: the
+     recipe scenes (as many rounds of the 8 recipes as ~30 s of the
+     host's NumPy oracle allow, at least 2 scenes per recipe) and 8
+     rendered 432x368 scenes through thin368_coco, decoded by
+     ``decode_adaptive`` (K1 and K3; K1 again at K=128 where a scene
+     escalates) against the NumPy oracle, and every other default scene
+     against the C++ oracle where ``g++`` is present: 0 mismatches.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 The last lines are the kernels driven, one JSON line per the kernels'
@@ -116,7 +141,9 @@ numbers, the card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. The script imports torch, numpy and
 the port only, and writes nothing outside ``tfpose_tpu_torch/_build/``
 (phase 9's checkpoints go to ``_build/chip_smoke_train/``, phase 10's
-files to ``_build/chip_smoke_convert/``).
+files to ``_build/chip_smoke_convert/``, phase 12's C++ oracle library
+to ``_build/``) but phase 11's rendezvous files, in a temporary
+directory that ``launch`` removes.
 """
 
 from __future__ import annotations
@@ -459,6 +486,231 @@ def same_humans(got, want, what: str) -> None:
                   f"{what}: part {k} coords {p1[k][:2]} vs {p2[k][:2]}")
             check(abs(p1[k][2] - p2[k][2]) <= 1e-4,
                   f"{what}: part {k} score {p1[k][2]} vs {p2[k][2]}")
+
+
+# ---- phase 11's ranks. Spawned ranks import this script (not as
+# __main__), so they are top-level functions; each resets the kernels'
+# launch counts before its path and returns them with its results.
+
+def kernel_wrappers():
+    """The four kernels' wrappers, by name; each counts its launches."""
+    from tfpose_tpu_torch.ops.kernels.paf_score import score_candidates_raw
+    from tfpose_tpu_torch.ops.kernels.smooth_nms import (
+        smooth_nms, smooth_nms_topk, smooth_nms_topk_raw)
+
+    return {"smooth_nms_topk_raw": smooth_nms_topk_raw,
+            "smooth_nms": smooth_nms,
+            "score_candidates_raw": score_candidates_raw,
+            "smooth_nms_topk": smooth_nms_topk}
+
+
+def counted(run):
+    """``run()`` with every launch count set to 0 just before it and
+    read just after: (its result, {kernel: launches})."""
+    import torch
+
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = run()
+    torch.cuda.synchronize()
+    return out, {name: fn.launches for name, fn in wrappers.items()}
+
+
+def seeded_thin():
+    """mobilenet_thin with seeded weights, on the CPU (the train legs)."""
+    import torch
+
+    from tfpose_tpu_torch.models import get_network
+    from tfpose_tpu_torch.models.layers import init_weights
+
+    return init_weights(get_network("mobilenet_thin"),
+                        torch.Generator().manual_seed(0))
+
+
+def train_steps(batches, mesh=None, device=None):
+    """``len(batches)`` train steps of the seeded thin at lr 1e-4 (on
+    ``mesh``, or unsharded on ``device``): (losses, the state's tensors
+    as numpy, one dict: parameters and buffers by name, then 'mu/...'
+    and 'nu/...')."""
+    from tfpose_tpu_torch.parallel.mesh import (
+        assert_replicas_equal, replicated)
+    from tfpose_tpu_torch.train.state import (
+        TrainState, make_optimizer, make_train_step, replica_tensors)
+
+    net = seeded_thin().to(mesh.device if mesh else device)
+    if mesh is not None:
+        replicated(mesh, net)
+    state = TrainState.create(net, make_optimizer(1e-4))
+    step = make_train_step(mesh=mesh)
+    losses = [float(step(state, b)[1]["loss"]) for b in batches]
+    if mesh is not None:
+        assert_replicas_equal(mesh, replica_tensors(state))
+    out = {k: v.detach().cpu().numpy() for k, v in net.state_dict().items()}
+    for which in ("mu", "nu"):
+        out.update({f"{which}/{k}": v.cpu().numpy()
+                    for k, v in getattr(state, which).items()})
+    return losses, out
+
+
+def evaluate_on(mesh, items, device=None, spatial=False):
+    """thin368_coco's ``BatchedEvaluator`` (fp32, batch 8) on ``items``
+    (on ``mesh``, its rows split too with ``spatial``, or unsharded on
+    ``device``): (the human lists of each batch, their COCO
+    detections)."""
+    import numpy as np
+
+    from tfpose_tpu_torch.evaluation.coco_eval import humans_to_detections
+    from tfpose_tpu_torch.evaluation.sweep import BatchedEvaluator
+
+    kw = (dict(mesh=mesh, spatial=spatial) if mesh is not None
+          else dict(device=device))
+    ev = BatchedEvaluator("mobilenet_thin", (432, 368), batch_size=8,
+                          dtype="float32", **kw)
+    ev.load_params(CHECKPOINT)
+    humans = [ev.run_batch(np.stack([img for _, img, _ in items[i:i + 8]]))
+              for i in range(0, len(items), 8)]
+    dets = [d for hs, (image_id, _, (w, h)) in zip(
+        [h for batch in humans for h in batch], items)
+        for d in humans_to_detections(hs, image_id, w, h)]
+    return humans, dets
+
+
+def time_host_ms(fn, reps: int = 10):
+    """Median host milliseconds of ``fn()`` ending in a synchronize."""
+    import torch
+
+    times = []
+    for _ in range(reps + 2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return float(sorted(times[2:])[len(times[2:]) // 2])
+
+
+def time_collectives(mesh, halo_shape):
+    """Median ms of a gradient-sized ``all_reduce`` (mobilenet_thin's
+    2,213,850 fp32 values) over the world and, on a spatial mesh, of one
+    halo exchange of a ``halo_shape`` NCHW block's rows for a 3x3 conv."""
+    import torch
+    import torch.distributed as dist
+
+    from tfpose_tpu_torch.parallel import halo
+    from tfpose_tpu_torch.parallel.mesh import sharded
+
+    grads = torch.ones(2213850, device=mesh.device)
+    out = {"all_reduce_grads_ms": time_host_ms(
+        lambda: dist.all_reduce(grads, group=mesh.world))}
+    if mesh.n_spatial > 1:
+        n, c, h, w = halo_shape
+        rows = halo.row_bounds(h, mesh.n_spatial)
+        x = torch.ones((n, c, rows[mesh.spatial_index + 1]
+                        - rows[mesh.spatial_index], w), device=mesh.device)
+        with sharded(mesh, image_hw=(h, w)):
+            shard = halo.current_rows()
+            out["halo_exchange_ms"] = time_host_ms(
+                lambda: halo.window(x, shard, 2, h, 3, 1, 1, 0.0))
+    return out
+
+
+def rank_nccl(items, batches, devices=None):
+    """Leg 1: NCCL, one rank on the card: the evaluator on
+    ``make_mesh()`` (the visible cards) and two train steps on it."""
+    from tfpose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=devices)
+    t = time.perf_counter()
+    (humans, dets), eval_counts = counted(lambda: evaluate_on(mesh, items))
+    eval_s = time.perf_counter() - t
+    t = time.perf_counter()
+    (losses, state), train_counts = counted(lambda: train_steps(batches,
+                                                                mesh))
+    return {"shape": mesh.shape, "humans": humans, "dets": dets,
+            "losses": losses, "state": state, "eval_s": eval_s,
+            "train_s": time.perf_counter() - t,
+            "launches": {"eval": eval_counts, "train": train_counts},
+            "times": time_collectives(mesh, None)}
+
+
+def rank_nccl_deterministic(items, batches, devices=None):
+    """Leg 1 with cuDNN's deterministic algorithms, as the unsharded
+    references take them (a bit-for-bit comparison)."""
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    return rank_nccl(items, batches, devices)
+
+
+def sharded_forward(mesh, imgs):
+    """thin368_coco on ``mesh`` and a function that runs its forward of
+    the uint8 ``imgs`` (rows and batch split as the mesh says) and
+    gathers the whole (N, H/8, W/8, 57) maps on every rank."""
+    import numpy as np
+    import torch
+
+    from tfpose_tpu_torch.convert.checkpoint import (
+        load_flax_msgpack, variables_from_numpy)
+    from tfpose_tpu_torch.estimator import run_backbone
+    from tfpose_tpu_torch.models import get_network
+    from tfpose_tpu_torch.parallel.halo import row_bounds
+    from tfpose_tpu_torch.parallel.mesh import (
+        gather_blocks, replicated, shard_batch, sharded)
+    from tfpose_tpu_torch.pipeline.preprocess import normalize
+
+    net = get_network("mobilenet_thin")
+    variables_from_numpy(net, load_flax_msgpack(CHECKPOINT))
+    replicated(mesh, net.eval().to(mesh.device))
+    x = torch.as_tensor(np.stack(imgs), device=mesh.device)
+    n, h, w = x.shape[:3]
+
+    def forward():
+        with sharded(mesh, image_hw=(h, w)):
+            local = run_backbone(net, normalize(shard_batch(mesh, x)))
+        local = gather_blocks(local, row_bounds(-(-h // 8), mesh.n_spatial),
+                              mesh.spatial_index, mesh.spatial, dim=1)
+        return gather_blocks(local, row_bounds(n, mesh.n_data),
+                             mesh.data_index, mesh.data)
+
+    return forward
+
+
+def rank_gloo2(imgs, items, devices):
+    """Legs 2 and 4: gloo, two ranks sharing the card. The thin368_coco
+    forward of ``imgs`` on a (1 x 2) mesh, gathered; the evaluator on a
+    (2 x 1) mesh."""
+    from tfpose_tpu_torch.parallel.mesh import make_mesh
+
+    rows = make_mesh(1, 2, devices)
+    data = make_mesh(2, 1, devices)
+    forward = sharded_forward(rows, imgs)
+    t = time.perf_counter()
+    maps, fwd_counts = counted(forward)
+    fwd_s = time.perf_counter() - t
+    fwd_ms = time_host_ms(forward, reps=5)
+    t = time.perf_counter()
+    (humans, dets), eval_counts = counted(lambda: evaluate_on(data, items))
+    return {"maps": maps.cpu().numpy(), "humans": humans, "dets": dets,
+            "fwd_s": fwd_s, "fwd_ms": fwd_ms,
+            "eval_s": time.perf_counter() - t,
+            "launches": {"forward": fwd_counts, "eval": eval_counts},
+            "times": time_collectives(rows, (8, 24, 184, 216))}
+
+
+def rank_gloo4(batches, devices):
+    """Leg 3: gloo, four ranks sharing the card: one train step of the
+    seeded thin on a (2 x 2) mesh (its end checks the four states equal
+    bit for bit)."""
+    from tfpose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(2, 2, devices)
+    t = time.perf_counter()
+    (losses, state), counts = counted(lambda: train_steps(batches, mesh))
+    return {"losses": losses, "state": state if mesh.rank == 0 else None,
+            "train_s": time.perf_counter() - t,
+            "launches": {"train": counts},
+            "times": time_collectives(mesh, (8, 24, 184, 184))}
 
 
 def main() -> int:
@@ -1736,6 +1988,187 @@ def main() -> int:
         log(f"get_flops thin 432x368: {flops} on the card and on the CPU "
             f"({flops / 1e9:.3f} GFLOP, convolutions; "
             f"{time.perf_counter() - t:.2f} s)")
+
+    from tfpose_tpu_torch.evaluation import parity_sweep
+    from tfpose_tpu_torch.parallel.mesh import launch
+    from tfpose_tpu_torch.pipeline.preprocess import normalize
+
+    with phase("11 mesh"):
+        items, _ = rendered_coco(16, 432, 368, seed=11)
+        imgs16 = [img for _, img, _ in items]
+        gen = train_cli.synthetic_batches(16, (368, 368),
+                                          np.random.default_rng(12))
+        batches = [next(gen) for _ in range(2)]
+
+        def record(leg, ranks):
+            for r, out in enumerate(ranks):
+                for what, counts in out["launches"].items():
+                    path_launches[f"mesh {leg} {what}/rank{r}"] = counts
+                    log(f"launches on mesh {leg} {what}, rank {r}: {counts}")
+                log(f"mesh {leg} rank {r} collectives (host ms, median): "
+                    f"{out['times']} [{smi}]")
+
+        def batch_keys(batches):
+            return [[humans_key(h) for h in b] for b in batches]
+
+        def state_diff(got, want):
+            """(max |d| of parameters; the BN statistics' worst |d| over
+            1e-7 + 1e-5 |want| (rtol 1e-5, as allclose) and max |d|;
+            max |d| of mu over the largest |mu|)."""
+            par = [k for k in want if not k.startswith(("mu/", "nu/"))
+                   and "running" not in k and "num_batches" not in k]
+            bn = [k for k in want if "running" in k]
+            mu = [k for k in want if k.startswith("mu/")]
+            top = max(np.abs(want[k]).max() for k in mu)
+            return (max(np.abs(got[k] - want[k]).max() for k in par),
+                    max((np.abs(got[k] - want[k])
+                         / (1e-7 + 1e-5 * np.abs(want[k]))).max()
+                        for k in bn),
+                    max(np.abs(got[k] - want[k]).max() for k in bn),
+                    max(np.abs(got[k] - want[k]).max() for k in mu) / top)
+
+        # the unsharded references on the card, with cuDNN's
+        # deterministic algorithms for leg 1's bit-for-bit comparisons
+        t = time.perf_counter()
+        cudnn = torch.backends.cudnn
+        with cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                         allow_tf32=False):
+            want_humans, want_dets = evaluate_on(None, items, device=dev)
+            want2 = train_steps(batches, device=dev)
+            want1 = train_steps(batches[:1], device=dev)
+        net_u = get_network("mobilenet_thin")
+        net_u.load_state_dict(est.net.state_dict())
+        net_u.eval().to(dev)
+        with torch.inference_mode():
+            want_maps = run_backbone(net_u, normalize(torch.as_tensor(
+                np.stack(imgs16), device=dev))).cpu().numpy()
+        log(f"unsharded references on the card: evaluator on 16 scenes, 2 + "
+            f"1 train steps (B=16, 368x368), thin forward B=16 "
+            f"({time.perf_counter() - t:.2f} s)")
+
+        # leg 1: NCCL, one rank on the card
+        t = time.perf_counter()
+        (nccl,) = launch(rank_nccl_deterministic, 1, ["cuda:0"], "nccl",
+                         items, batches, timeout=120)
+        record("nccl 1x1", [nccl])
+        check(nccl["shape"] == {"data": 1, "spatial": 1}, "make_mesh()")
+        check(batch_keys(nccl["humans"]) == batch_keys(want_humans)
+              and nccl["dets"] == want_dets,
+              "NCCL 1x1 evaluator differs from the unsharded one")
+        for k, v in want2[1].items():
+            check(np.array_equal(nccl["state"][k], v),
+                  f"NCCL 1x1 train state {k} differs from the unsharded "
+                  f"step's")
+        check(nccl["losses"] == want2[0], "NCCL 1x1 losses")
+        launched_rank = nccl["launches"]["eval"]
+        check(launched_rank["smooth_nms_topk_raw"] > 0
+              and launched_rank["score_candidates_raw"] > 0,
+              "NCCL 1x1 evaluator launched no K1 or K3")
+        log(f"leg 1, NCCL 1x1 on the card ({time.perf_counter() - t:.2f} s "
+            f"with the process; evaluator {nccl['eval_s']:.2f} s, 2 train "
+            f"steps {nccl['train_s']:.2f} s): {len(want_dets)} detections "
+            f"and the humans of 16 scenes equal the unsharded evaluator's "
+            f"exactly; the train state after 2 steps equals the unsharded "
+            f"one bit for bit ({len(want2[1])} tensors), losses "
+            f"{nccl['losses']}")
+
+        # legs 2 and 4: gloo, two ranks sharing the card
+        t = time.perf_counter()
+        two = launch(rank_gloo2, 2, ["cuda:0"] * 2, "gloo", imgs16, items,
+                     ["cuda:0"] * 2, timeout=120)
+        record("gloo", two)
+        d = float(np.abs(two[0]["maps"] - want_maps).max())
+        check(np.array_equal(two[0]["maps"], two[1]["maps"]),
+              "gloo 1x2: the ranks' gathered maps differ")
+        check(d <= 1e-4, f"gloo 1x2 thin forward differs by {d}")
+        for r, out in enumerate(two):
+            check(not any(out["launches"]["forward"].values()),
+                  "the sharded forward launched a decode kernel")
+            check(out["launches"]["eval"]["smooth_nms_topk_raw"] > 0
+                  and out["launches"]["eval"]["score_candidates_raw"] > 0,
+                  f"gloo 2x1 rank {r} launched no K1 or K3")
+            for g, w in zip(out["humans"], want_humans):
+                for i, (gh, wh) in enumerate(zip(g, w)):
+                    same_humans(gh, wh, f"gloo 2x1 rank {r} image {i}")
+            check([x["image_id"] for x in out["dets"]]
+                  == [x["image_id"] for x in want_dets],
+                  f"gloo 2x1 rank {r}: detections")
+        exact = all(batch_keys(out["humans"]) == batch_keys(want_humans)
+                    for out in two)
+        log(f"legs 2 and 4, gloo on two ranks sharing the card "
+            f"({time.perf_counter() - t:.2f} s with the processes): thin368 "
+            f"forward 432x368 B=16 on (1 x 2) in {two[0]['fwd_s']:.2f} s "
+            f"(then {two[0]['fwd_ms']:.2f} ms per call), gathered maps max "
+            f"|d| {d:.3g} from the unsharded forward (atol 1e-4); evaluator "
+            f"on (2 x 1) in {two[0]['eval_s']:.2f} s: every rank's humans "
+            f"equal the unsharded ones (parts exact, coords 1e-6, scores "
+            f"1e-4; exactly: {exact}) [{smi}]")
+
+        # leg 3: gloo, four ranks sharing the card
+        t = time.perf_counter()
+        four = launch(rank_gloo4, 4, ["cuda:0"] * 4, "gloo", batches[:1],
+                      ["cuda:0"] * 4, timeout=180)
+        record("gloo 2x2 train", four)
+        got = four[0]["state"]
+        dl = abs(four[0]["losses"][0] - want1[0][0]) / want1[0][0]
+        dp, dbn, dbn_abs, dmu = state_diff(got, want1[1])
+        check(dl <= 1e-5, f"gloo 2x2 loss rel {dl}")
+        check(dbn <= 1, f"gloo 2x2 BN statistics {dbn_abs} (allclose "
+              f"ratio {dbn})")
+        check(dp <= 2.1e-4, f"gloo 2x2 parameters {dp}")
+        check(dmu <= 0.15, f"gloo 2x2 gradients {dmu} of the largest")
+        log(f"leg 3, gloo (2 x 2) on four ranks sharing the card "
+            f"({time.perf_counter() - t:.2f} s with the processes; the step "
+            f"{four[0]['train_s']:.2f} s): one step of thin 368x368 B=16 "
+            f"against the unsharded step: loss rel {dl:.3g} (rtol 1e-5), "
+            f"BN statistics max |d| {dbn_abs:.3g} ({dbn:.3g} of rtol 1e-5 "
+            f"with atol 1e-7), parameters max |d| "
+            f"{dp:.3g} (2.1e-4), gradients (mu) {dmu:.3g} of the largest "
+            f"(0.15); the four ranks' states equal bit for bit "
+            f"(assert_replicas_equal in the ranks) [{smi}]")
+
+    with phase("12 parity sweep"):
+        scene, sparams = parity_sweep._scene(np.random.default_rng(0),
+                                             "crowd")
+        parity_sweep._oracle_humans(scene, sparams)     # warm-up
+        t = time.perf_counter()
+        parity_sweep._oracle_humans(scene, sparams)
+        per = time.perf_counter() - t
+        # as many whole rounds of the 8 recipes as ~30 s of the oracle
+        # on the host allow, at least 2 scenes per recipe
+        n = 8 * max(2, min(8, int(30.0 / (8 * per))))
+        gxx = any(os.access(os.path.join(d, "g++"), os.X_OK)
+                  for d in os.environ.get("PATH", "").split(os.pathsep))
+        cpp_every = 2 if gxx else 0
+        t = time.perf_counter()
+        stats = drive("parity_sweep", lambda: parity_sweep.run_sweep(
+            n, seed0=3000, cpp_every=cpp_every))
+        launched("parity_sweep", "smooth_nms_topk_raw",
+                 "score_candidates_raw")
+        check(stats.mismatch_total == 0,
+              f"parity sweep: {stats.mismatch_total} mismatches: "
+              f"{stats.examples}")
+        check(stats.cpp_mismatch == 0, f"C++ oracle: {stats.examples}")
+        check(stats.escalated >= n // 8, "no scene escalated to K=128")
+        log(f"parity sweep on the card ({time.perf_counter() - t:.2f} s; the "
+            f"oracle {per:.2f} s per scene on the host): {stats.total} "
+            f"scenes, {len(stats.per_recipe)} recipes, 0 mismatches, "
+            f"{stats.escalated} escalated to K=128, mean deviation "
+            f"{stats.mean_px_deviation:.3g} px over {stats.dev_px_n} "
+            f"keypoints; C++ oracle {stats.cpp_mismatch}/{stats.cpp_total}"
+            f"{'' if gxx else ' (no g++)'}")
+        t = time.perf_counter()
+        ck = drive("parity_ckpt_sweep", lambda: parity_sweep.run_ckpt_sweep(
+            8, CHECKPOINT, (432, 368), seed0=3000, cpp_every=cpp_every))
+        launched("parity_ckpt_sweep", "smooth_nms_topk_raw",
+                 "score_candidates_raw")
+        check(ck.total == 8 and ck.mismatch_total == 0,
+              f"checkpoint sweep: {ck.examples}")
+        check(ck.cpp_mismatch == 0, f"C++ oracle: {ck.examples}")
+        log(f"checkpoint sweep on the card ({time.perf_counter() - t:.2f} s): "
+            f"8 rendered 432x368 scenes through thin368_coco, 0 mismatches, "
+            f"{ck.dev_px_n} keypoints, C++ oracle "
+            f"{ck.cpp_mismatch}/{ck.cpp_total}")
 
     # every path's launches, the serving and bf16 paths included
     for entry in kernels:

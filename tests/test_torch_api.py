@@ -367,7 +367,10 @@ def test_sweep_evaluates_each_model():
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(spatial=True)])
 def test_batched_evaluator_rejects_mesh_and_spatial(kw):
-    with pytest.raises(ValueError, match="one card"):
+    """A mesh that is no ``parallel.mesh.Mesh``, and ``spatial`` without
+    a mesh, raise (``tests/test_torch_parallel_eval.py`` evaluates on
+    meshes)."""
+    with pytest.raises(ValueError, match="parallel.mesh.Mesh|needs a mesh"):
         BatchedEvaluator("mobilenet_thin", (64, 64), device="cpu", **kw)
 
 

@@ -522,3 +522,79 @@ def test_profiling_on_the_card(thin368, tmp_path):
                           device="cpu")
     card = TfPoseEstimator("mobilenet_thin", target_size=(96, 80))
     assert card.get_flops() == cpu.get_flops() > 0
+
+
+# ---- the mesh on the card (parallel/): ranks started by launch; their
+# bodies are top-level functions, since a spawned rank imports this file
+
+def _halo_rank_on_the_card():
+    """A 3x3 and a 7x7 conv (stride 1) and a 3x3 stride-2 depthwise conv
+    on this rank's rows of 46 (over gloo, CUDA tensors), forward and
+    gradient, against its rows of the unsharded conv on the card: the
+    largest differences relative to the largest values."""
+    from tfpose_tpu_torch.models.layers import SameConv2d
+    from tfpose_tpu_torch.parallel.halo import row_bounds
+    from tfpose_tpu_torch.parallel.mesh import make_mesh, shard_batch, sharded
+
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(1, 2, ["cuda:0"] * 2)
+    s = mesh.spatial_index
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 6, 46, 54), generator=g).cuda()
+    out = {}
+    for name, conv in (("3x3", SameConv2d(6, 5, 3)),
+                       ("7x7", SameConv2d(6, 4, 7)),
+                       ("dw3x3_s2", SameConv2d(6, 6, 3, 2, groups=6))):
+        with torch.no_grad():
+            for t in conv.parameters():
+                t.copy_(torch.randn(t.shape, generator=g))
+        conv.cuda()
+        xl = shard_batch(mesh, x, spatial_axis=2).clone().requires_grad_()
+        with sharded(mesh, image_hw=(46, 54)):
+            y = conv(xl)
+        gl = torch.autograd.grad((y * y).sum(), xl)[0]
+        xf = x.clone().requires_grad_()
+        yf = conv(xf)
+        gf = torch.autograd.grad((yf * yf).sum(), xf)[0]
+        ob, ib = row_bounds(yf.shape[2], 2), row_bounds(46, 2)
+        out[name] = (
+            ((y - yf[:, :, ob[s]:ob[s + 1]]).abs().max()
+             / yf.abs().max()).item(),
+            ((gl - gf[:, :, ib[s]:ib[s + 1]]).abs().max()
+             / gf.abs().max()).item())
+    return out
+
+
+def _nccl_rank():
+    import torch.distributed as dist
+
+    from tfpose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh()
+    t = torch.arange(5, dtype=torch.float32, device=mesh.device)
+    dist.all_reduce(t, group=mesh.world)
+    return dist.get_backend(), mesh.shape, str(mesh.device), t.cpu().numpy()
+
+
+def test_halo_exchange_on_the_card_over_gloo(nets):
+    """Two gloo ranks sharing the card, CUDA tensors: forward and
+    gradient within 1e-5 of the largest value (cuDNN sums a block's
+    windows in another order than the whole map's)."""
+    from tfpose_tpu_torch.parallel.mesh import launch
+
+    for out in launch(_halo_rank_on_the_card, 2, ["cuda:0"] * 2, "gloo",
+                      timeout=120):
+        for name, (fwd, grad) in out.items():
+            assert fwd <= 1e-5 and grad <= 1e-5, (name, fwd, grad)
+
+
+def test_nccl_all_reduce_with_one_rank(nets):
+    """NCCL initialises with one rank on the card, ``make_mesh()`` takes
+    the visible card, and an ``all_reduce`` runs on its stream."""
+    from tfpose_tpu_torch.parallel.mesh import launch
+
+    (backend, shape, device, t), = launch(_nccl_rank, 1, ["cuda:0"], "nccl",
+                                          timeout=120)
+    assert backend == "nccl" and device == "cuda:0"
+    assert shape == {"data": 1, "spatial": 1}
+    np.testing.assert_array_equal(t, np.arange(5, dtype=np.float32))

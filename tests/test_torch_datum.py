@@ -331,8 +331,10 @@ def test_datum_pose_dataset_matches_jax_and_the_file_path(
 
 
 def test_train_cli_datum_shard(tmp_path, rng):
-    """``tfpose-torch-train --datum-shard`` on the CPU (the JAX test's
-    ``--mesh-data 4`` is rejected by the one-card port)."""
+    """``tfpose-torch-train --datum-shard`` on the CPU, in one process
+    and with ``--mesh-data 2`` (two gloo ranks; rank 0 reads the shard
+    and hands each batch to the other): the same first loss (rtol
+    1e-5)."""
     from tfpose_tpu_torch.cli import train as train_cli
 
     shard = str(tmp_path / "train.tpds")
@@ -344,8 +346,10 @@ def test_train_cli_datum_shard(tmp_path, rng):
     state = train_cli.main(argv)
     assert state.step == 2
     assert all(math.isfinite(h["loss"]) for h in state.history)
-    with pytest.raises(ValueError, match="one card"):
-        train_cli.main(argv + ["--mesh-data", "4"])
+    mesh = train_cli.main(argv + ["--mesh-data", "2"])
+    assert mesh.step == 2
+    assert mesh.history[0]["loss"] == pytest.approx(
+        state.history[0]["loss"], rel=1e-5)
     with pytest.raises(ValueError, match="fewer than --batchsize"):
         train_cli.main(argv[:argv.index("--batchsize") + 1] + ["16"]
                        + argv[argv.index("--batchsize") + 2:])

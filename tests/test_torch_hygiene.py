@@ -1,7 +1,8 @@
 """Import hygiene of the port: ``tfpose_tpu_torch`` and ``chip_smoke.py``
-load no jax, flax, optax, orbax, msgpack, cv2, tensorboard, tensorflow,
-protobuf (``google``), lmdb or ``tfpose_tpu`` module, and the chip run
-refuses to start without a card or outside a checkout."""
+(also in the ranks that it spawns) load no jax, flax, optax, orbax,
+msgpack, cv2, tensorboard, tensorflow, protobuf (``google``), lmdb or
+``tfpose_tpu`` module, and the chip run refuses to start without a card
+or outside a checkout."""
 
 import ast
 import os
@@ -174,3 +175,33 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _chip_smoke_rank_modules():
+    """In a rank spawned by ``launch``: import ``chip_smoke.py`` as a
+    spawned rank does (``__mp_main__``) and every port module that it
+    names; return the forbidden modules loaded (a namespace package that
+    site start-up put there has no file)."""
+    import importlib
+    import runpy
+
+    path = os.path.join(ROOT, "chip_smoke.py")
+    runpy.run_path(path, run_name="__mp_main__")
+    tree = ast.parse(open(path).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.module.startswith(
+                "tfpose_tpu_torch"):
+            importlib.import_module(node.module)
+    return sorted(name for name, mod in list(sys.modules.items())
+                  if name.split(".")[0] in FORBIDDEN
+                  and getattr(mod, "__file__", None) is not None)
+
+
+def test_chip_smoke_ranks_import_nothing_forbidden():
+    """Phase 11 spawns ranks; a spawned rank of ``launch`` that loads
+    ``chip_smoke.py`` and the port modules it names loads none of the
+    forbidden packages."""
+    from tfpose_tpu_torch.parallel.mesh import launch
+
+    assert launch(_chip_smoke_rank_modules, 2, ["cpu"] * 2, "gloo",
+                  timeout=120) == [[], []]

@@ -243,8 +243,9 @@ def test_synthetic_training_loss_decreases(dtype):
 def test_train_cli_remote_data_and_logdir(tmp_path):
     """``train`` consuming a data worker's batches, in bf16, writing
     TensorBoard scalars and a prediction panel (``train.py``'s test);
-    more than one card's worth of mesh raises, and so does a Datum shard
-    that does not exist (``tests/test_torch_datum.py`` trains on one)."""
+    a mesh larger than the cards raises JAX's message, and a Datum shard
+    that does not exist raises (``tests/test_torch_datum.py`` trains on
+    one)."""
     rng = np.random.default_rng(0)
 
     def batches():
@@ -270,8 +271,10 @@ def test_train_cli_remote_data_and_logdir(tmp_path):
     events = [f for f in os.listdir(logdir) if "tfevents" in f]
     assert events
     assert os.path.getsize(os.path.join(logdir, events[0])) > 500
-    with pytest.raises(ValueError, match="one card"):
-        train_cli.main(["--mesh-data", "2", "--device", "cpu"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "device_count", lambda: 0)
+        with pytest.raises(ValueError, match="need 2x1 devices, have 0"):
+            train_cli.main(["--mesh-data", "2"])
     with pytest.raises(FileNotFoundError):
         train_cli.main(["--datum-shard", str(tmp_path / "x.tpds"),
                         "--device", "cpu"])

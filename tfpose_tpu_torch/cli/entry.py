@@ -1,6 +1,6 @@
 """Console-script entry points of the port (``pyproject.toml``:
 ``tfpose-torch-run``, ``-video``, ``-webcam``, ``-eval``, ``-train``,
-``-convert``, ``-dataworker``), the
+``-convert``, ``-dataworker``, ``-parity-sweep``), the
 counterparts of ``tfpose_tpu/cli/entry.py``."""
 
 from __future__ import annotations
@@ -38,4 +38,9 @@ def convert_main():
 
 def dataworker_main():
     from tfpose_tpu_torch.cli.dataworker import main
+    main()
+
+
+def parity_sweep_main():
+    from tfpose_tpu_torch.evaluation.parity_sweep import main
     main()

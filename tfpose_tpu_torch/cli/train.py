@@ -2,15 +2,25 @@
 ``tf_pose/train.py``): ``--model --batchsize --lr --max-steps
 --checkpoint-dir``, data from COCO (``--coco-json --img-dir``), a Caffe
 Datum record shard (``--datum-shard``), remote data workers
-(``--remote-data``) or ``--synthetic`` rendered scenes, on one device
-(``--device``, the CUDA card by default).
+(``--remote-data``) or ``--synthetic`` rendered scenes, on the CUDA
+cards by default (``--device cpu``: the CPU).
 
     tfpose-torch-train --synthetic --input-size 368x368 --batchsize 16 \\
         --max-steps 1000 --checkpoint-dir ckpt
 
+``--mesh-data`` and ``--mesh-spatial`` mean what they mean in JAX: the
+batch split over ``--mesh-data`` ranks (0: every card divided by
+``--mesh-spatial``) and the image height over ``--mesh-spatial``
+(``parallel/mesh.py``). A grid of more than one rank runs one process
+per rank (``launch``), over NCCL on the visible cards, or over gloo on
+the CPU with ``--device cpu``; a grid larger than the cards raises JAX's
+message. Rank 0 alone reads each global batch, from every source, and
+hands it to the others; rank 0 alone logs, writes summaries and
+checkpoints, and exports; ``--resume`` loads on every rank. After the
+last step the ranks' states are checked equal bit for bit.
+
 The flags and defaults are the JAX script's. What differs:
 
-  * one card, so ``--mesh-data`` / ``--mesh-spatial`` above 1 raise;
   * a ``--datum-shard`` with fewer records than ``--batchsize`` raises
     (it would yield no batch);
   * ``--checkpoint-dir`` keeps the train state (step, parameters, BN
@@ -190,9 +200,10 @@ def main(argv=None):
                              "device inside the step (host ships joint "
                              "coords only)")
     parser.add_argument("--mesh-data", type=int, default=0,
-                        help="data-parallel devices: one card, so 0 or 1")
+                        help="0 = all cards on the data axis")
     parser.add_argument("--mesh-spatial", type=int, default=1,
-                        help="spatial shards: one card, so 1")
+                        help=">1 shards image/target height over the "
+                             "mesh 'spatial' axis (row halo exchanges)")
     parser.add_argument("--remote-data", type=str, default="",
                         help="comma-separated worker host:port list; "
                              "consume batches from remote dataworkers")
@@ -205,17 +216,72 @@ def main(argv=None):
     add_device_flag(parser)
     args = parser.parse_args(argv)
 
+    cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    if cpu:
+        n_data = args.mesh_data or 1
+        devices = ["cpu"] * (n_data * args.mesh_spatial)
+    else:
+        from tfpose_tpu_torch.parallel.mesh import visible_cards
+        devices = visible_cards()
+        n_data = args.mesh_data or max(len(devices) // args.mesh_spatial, 1)
+    from tfpose_tpu_torch.parallel.mesh import check_grid, launch
+    check_grid(n_data, args.mesh_spatial, len(devices))
+    size = n_data * args.mesh_spatial
+    if size == 1:
+        return train(args)
+    out = launch(_train_rank, size, devices[:size], "gloo" if cpu else "nccl",
+                 args, n_data, devices[:size])
+    return _state_on_cpu(args, *out[0])
+
+
+def _train_rank(args, n_data, devices):
+    """One rank of a mesh run: rank 0 returns its final train state's
+    ``state_dict`` and log on the CPU, the others None."""
+    from tfpose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data, args.mesh_spatial, devices)
+    state = train(args, mesh)
+    if mesh.rank:
+        return None
+    sd = state.state_dict()
+    cpu = {"step": sd["step"], "net": {k: v.cpu() for k, v in
+                                       sd["net"].items()},
+           "mu": {k: v.cpu() for k, v in sd["mu"].items()},
+           "nu": {k: v.cpu() for k, v in sd["nu"].items()}}
+    return cpu, state.history
+
+
+def _state_on_cpu(args, sd, history):
+    from tfpose_tpu_torch.models import get_network
+    from tfpose_tpu_torch.train.state import TrainState, make_optimizer
+
+    net = get_network(args.model, dtype=torch.bfloat16 if args.bf16
+                      else torch.float32)
+    state = TrainState.create(net, make_optimizer(
+        args.lr, args.decay_rate, args.decay_steps))
+    state.load_state_dict(sd)
+    state.history = history
+    return state
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def train(args, mesh=None):
+    """The training loop of ``main``'s ``args`` on one device, or on
+    this rank of ``mesh``. Returns the final train state."""
     from tfpose_tpu_torch.convert.checkpoint import (
         save_flax_msgpack, variables_to_numpy)
     from tfpose_tpu_torch.models import get_network, model_wh
     from tfpose_tpu_torch.models.layers import init_weights
+    from tfpose_tpu_torch.parallel.mesh import (
+        assert_replicas_equal, broadcast_batch, replicated)
     from tfpose_tpu_torch.train.state import (
-        TrainState, make_optimizer, make_train_step)
+        TrainState, make_optimizer, make_train_step, replica_tensors)
 
-    if args.mesh_data > 1 or args.mesh_spatial > 1:
-        raise ValueError("the port trains on one card: --mesh-data and "
-                         "--mesh-spatial must be at most 1")
-    device = torch.device(args.device or "cuda")
+    chief = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh else torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA card available; pass --device cpu")
     w, h = model_wh(args.input_size)
@@ -227,9 +293,11 @@ def main(argv=None):
                       else torch.float32)
     init_weights(net, torch.Generator().manual_seed(0))
     net.to(device)
+    if mesh is not None:
+        replicated(mesh, net)
     tx = make_optimizer(args.lr, args.decay_rate, args.decay_steps)
     state = TrainState.create(net, tx)
-    train_step = make_train_step(rasterize=args.device_targets)
+    train_step = make_train_step(rasterize=args.device_targets, mesh=mesh)
 
     ckpts = None
     if args.checkpoint_dir:
@@ -243,8 +311,70 @@ def main(argv=None):
                 raise SystemExit(f"no checkpoints in {ckpts.dir}")
             ckpts.restore(step0, state)
             logger.info("resumed from step %s", step0)
-    logger.info("training %s at %dx%d on %s", args.model, w, h, device)
+    if chief:
+        logger.info("training %s at %dx%d on %s%s", args.model, w, h, device,
+                    f", mesh {mesh.shape}" if mesh else "")
 
+    batches = _batches(args, (w, h)) if chief else None
+    from tfpose_tpu_torch.train.summaries import (
+        make_writer, write_prediction_panel, write_scalars)
+    logdir = args.logdir or (args.checkpoint_dir + "/logs"
+                             if args.checkpoint_dir else "")
+    writer = make_writer(logdir if chief else "")
+
+    base = state.step  # nonzero after --resume: steps continue
+    t0 = time.time()
+    step = 0
+    while base + step < args.max_steps:
+        gstep = base + step + 1
+        batch = next(batches, None) if chief else None
+        if mesh is not None:
+            batch = broadcast_batch(mesh, batch)
+        if batch is None:
+            break
+        state, metrics = train_step(state, batch)
+        step += 1
+        if not chief:
+            continue
+        if gstep % args.log_every == 0:
+            loss = float(metrics["loss"])
+            now = time.time()
+            rate = step * args.batchsize / (now - t0)
+            logger.info("step %d loss=%.1f (%.1f img/s)", gstep, loss, rate)
+            state.history.append({"step": gstep, "loss": loss,
+                                  "images_per_sec": rate, "time": now})
+            write_scalars(writer, gstep, {f"train/{k}": float(v)
+                                          for k, v in metrics.items()})
+            writer.scalar("train/images_per_sec", rate, gstep)
+        if (args.image_summary_every and logdir
+                and gstep % args.image_summary_every == 0):
+            sample = _host(batch["image"][:1])
+            heat_pred = predict_heat(state.net, sample)[0]
+            heat_gt = (_host(batch["heat"][0]) if "heat" in batch else None)
+            write_prediction_panel(writer, gstep, sample[0], heat_pred,
+                                   heat_gt)
+        if ckpts and gstep % args.save_every == 0:
+            ckpts.save(state)
+    if mesh is not None:
+        assert_replicas_equal(mesh, replica_tensors(state))
+    if not chief:
+        return state
+    writer.flush()
+    if ckpts:
+        if ckpts.latest_step() != state.step:
+            ckpts.save(state)
+        logger.info("final checkpoint saved")
+        # export the inference weights in the JAX package's format
+        out = variables_to_numpy(state.net)
+        out.pop("quant", None)
+        save_flax_msgpack(os.path.join(ckpts.dir, "params.msgpack"), out)
+        logger.info("inference params exported")
+    return state
+
+
+def _batches(args, wh):
+    """The iterator of global batches that ``args`` names."""
+    w, h = wh
     rng = np.random.default_rng(0)
     dataset_kw = dict(input_size=(w, h), batch_size=args.batchsize,
                       augment=not args.no_augment,
@@ -291,51 +421,7 @@ def main(argv=None):
         # with the device step
         from tfpose_tpu_torch.train.dataset import PrefetchIterator
         batches = iter(PrefetchIterator(batches, depth=args.prefetch))
-
-    from tfpose_tpu_torch.train.summaries import (
-        make_writer, write_prediction_panel, write_scalars)
-    logdir = args.logdir or (args.checkpoint_dir + "/logs"
-                             if args.checkpoint_dir else "")
-    writer = make_writer(logdir)
-
-    base = state.step  # nonzero after --resume: steps continue
-    t0 = time.time()
-    for step, batch in enumerate(batches):
-        gstep = base + step + 1
-        if gstep > args.max_steps:
-            break
-        state, metrics = train_step(state, batch)
-        if gstep % args.log_every == 0:
-            loss = float(metrics["loss"])
-            now = time.time()
-            rate = (step + 1) * args.batchsize / (now - t0)
-            logger.info("step %d loss=%.1f (%.1f img/s)", gstep, loss, rate)
-            state.history.append({"step": gstep, "loss": loss,
-                                  "images_per_sec": rate, "time": now})
-            write_scalars(writer, gstep, {f"train/{k}": float(v)
-                                          for k, v in metrics.items()})
-            writer.scalar("train/images_per_sec", rate, gstep)
-        if (args.image_summary_every and logdir
-                and gstep % args.image_summary_every == 0):
-            sample = np.asarray(batch["image"][:1])
-            heat_pred = predict_heat(state.net, sample)[0]
-            heat_gt = (np.asarray(batch["heat"][0])
-                       if "heat" in batch else None)
-            write_prediction_panel(writer, gstep, sample[0], heat_pred,
-                                   heat_gt)
-        if ckpts and gstep % args.save_every == 0:
-            ckpts.save(state)
-    writer.flush()
-    if ckpts:
-        if ckpts.latest_step() != state.step:
-            ckpts.save(state)
-        logger.info("final checkpoint saved")
-        # export the inference weights in the JAX package's format
-        out = variables_to_numpy(state.net)
-        out.pop("quant", None)
-        save_flax_msgpack(os.path.join(ckpts.dir, "params.msgpack"), out)
-        logger.info("inference params exported")
-    return state
+    return batches
 
 
 if __name__ == "__main__":

@@ -7,10 +7,14 @@ resize, equal to cv2's ``INTER_AREA``), batched, and each batch runs the
 backbone and :func:`decode_batch` on one device; detections come back
 as padded arrays and become COCO keypoint dicts on the host.
 
-The port runs on one card: the JAX evaluator's ``mesh`` (batch sharded
-over a device mesh) and ``spatial`` (image height sharded too) have no
-counterpart, and either raises ``ValueError`` (the JAX package's
-``parallel/mesh.py`` is not ported, ROADMAP A13).
+With a ``mesh`` (``parallel/mesh.py``) every rank is given the same
+images; each data rank runs its block of each batch through the
+backbone and the decode, and the padded results are gathered over the
+data ranks, so that every rank returns the single-device evaluator's
+list, in the same order. With ``spatial`` the backbone also runs on row
+blocks of the images (halo exchanges over the spatial ranks); the
+stride-8 maps are gathered over the spatial group and the decode runs
+on whole maps, replicated per image, as JAX's does.
 """
 
 from __future__ import annotations
@@ -36,6 +40,14 @@ from tfpose_tpu_torch.models import get_network
 from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.ops.assemble import Assembled
 from tfpose_tpu_torch.ops.decode import decode_batch
+from tfpose_tpu_torch.parallel.halo import row_bounds
+from tfpose_tpu_torch.parallel.mesh import (
+    Mesh,
+    gather_blocks,
+    replicated,
+    shard_batch,
+    sharded,
+)
 from tfpose_tpu_torch.pipeline.preprocess import normalize, resize_u8
 
 logger = logging.getLogger("tfpose_tpu_torch.sweep")
@@ -43,23 +55,34 @@ logger = logging.getLogger("tfpose_tpu_torch.sweep")
 
 class BatchedEvaluator:
     """Runs one backbone over image batches on one device (the card by
-    default; ``device="cpu"`` runs the kernels' plain versions). Without
-    :meth:`load_params` the network has the port's seeded random
-    weights (``models/layers.py:init_weights``, seed 0)."""
+    default; ``device="cpu"`` runs the kernels' plain versions), or on
+    this rank of ``mesh`` (on the mesh's device; ``spatial`` also splits
+    the image rows). Without :meth:`load_params` the network has the
+    port's seeded random weights (``models/layers.py:init_weights``,
+    seed 0)."""
 
     def __init__(self, model: str, target_size: Tuple[int, int],
                  batch_size: int = 8, dtype: str = "bfloat16",
-                 upsample: float = 4.0, mesh=None,
+                 upsample: float = 4.0, mesh: Optional[Mesh] = None,
                  params: DecodeParams = DecodeParams(),
                  spatial: bool = False, device: Optional[str] = None):
-        if mesh is not None or spatial:
-            raise ValueError(
-                "tfpose_tpu_torch evaluates on one card: mesh and spatial "
-                "sharding have no counterpart (the JAX package's "
-                "parallel/mesh.py is not ported, ROADMAP A13)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a parallel.mesh.Mesh, got "
+                             f"{type(mesh).__name__}")
+        if spatial and mesh is None:
+            raise ValueError("spatial sharding needs a mesh")
+        if mesh is not None and device is not None:
+            raise ValueError("a mesh names each rank's device; pass no "
+                             "device")
+        if mesh is not None and batch_size < mesh.n_data:
+            raise ValueError(f"batch {batch_size} is smaller than the "
+                             f"{mesh.n_data} data ranks")
         if dtype not in _DTYPES:
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, "
                              f"got {dtype!r}")
+        self.mesh, self.spatial = mesh, spatial
+        if mesh is not None:
+            device = mesh.device
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -70,6 +93,8 @@ class BatchedEvaluator:
         self.net = get_network(model, _DTYPES[dtype])
         init_weights(self.net, torch.Generator().manual_seed(0))
         self.net.eval().to(self.device)
+        if mesh is not None:
+            replicated(mesh, self.net)
         self.up = (int(self.h / 8 * upsample), int(self.w / 8 * upsample))
         self.decode_params = params
         # (B, 18) bool after each run_batch: peak-cap saturation per
@@ -79,13 +104,38 @@ class BatchedEvaluator:
 
     def load_params(self, path: str):
         variables_from_numpy(self.net, load_flax_msgpack(path))
+        if self.mesh is not None:
+            replicated(self.mesh, self.net)
+
+    def _decode_sharded(self, x: torch.Tensor) -> Assembled:
+        """This rank's block of the batch through the backbone (on its
+        rows, with ``spatial``) and the decode; the results of every
+        data rank, gathered."""
+        mesh = self.mesh
+        n, h, w = x.shape[:3]
+        spatial = self.spatial and mesh.n_spatial > 1
+        with sharded(mesh, image_hw=(h, w) if spatial else None):
+            maps = run_backbone(self.net, normalize(shard_batch(
+                mesh, x, spatial_axis=1 if spatial else None)))
+        if spatial:
+            rows = row_bounds(-(-h // 8), mesh.n_spatial)
+            maps = gather_blocks(maps, rows, mesh.spatial_index,
+                                 mesh.spatial, dim=1)
+        out = decode_batch(maps, *self.up, self.decode_params)
+        blocks = row_bounds(n, mesh.n_data)
+        return Assembled(*(gather_blocks(t, blocks, mesh.data_index,
+                                         mesh.data) for t in out))
 
     def run_batch(self, imgs: np.ndarray) -> List[List]:
         """(B, H, W, 3) uint8 at the network size -> list of per-image
-        Human lists."""
+        Human lists (on a mesh, every rank is given the same batch and
+        returns the whole list)."""
         x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
-        out = decode_batch(run_backbone(self.net, normalize(x)), *self.up,
-                           self.decode_params)
+        if self.mesh is None:
+            out = decode_batch(run_backbone(self.net, normalize(x)),
+                               *self.up, self.decode_params)
+        else:
+            out = self._decode_sharded(x)
         arrays = Assembled(*(t.cpu().numpy() for t in out))
         self.last_peak_saturated = arrays.peak_saturated
         if arrays.peak_saturated.any() and not self._warned_saturation:

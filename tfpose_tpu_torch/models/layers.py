@@ -34,6 +34,13 @@ same path); in mode ``"int8"`` it quantises its fp32 input with that
 scale and its weights per output channel, accumulates the int8 products
 exactly in int32 (:func:`int_conv2d`) and rescales in fp32. The
 parameter names stay those of the fp32 tree.
+
+Sharding (``parallel/halo.py``): inside ``halo.use`` with row shards, a
+conv or max-pool whose window spans rows first fetches its neighbours'
+halo rows and pads ``SAME`` only at the image's true top and bottom
+edge; with a statistics group, BatchNorm in training sums its moments
+over the ranks. Outside that context, the default, every layer runs as
+on one device.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from tfpose_tpu_torch.parallel import halo
 
 BN_EPS = 1e-3
 FLAX_MOMENTUM = 0.997
@@ -149,6 +158,10 @@ class SameConv2d(nn.Conv2d):
     quant = "none"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rows = halo.current_rows()
+        if rows is not None and (self.kernel_size[0] > 1
+                                 or self.stride[0] > 1):
+            return self._forward_rows(x, rows)
         top, bottom = same_pads(x.shape[-2], self.kernel_size[0],
                                 self.stride[0])
         left, right = same_pads(x.shape[-1], self.kernel_size[1],
@@ -169,6 +182,27 @@ class SameConv2d(nn.Conv2d):
             with torch.no_grad():
                 torch.maximum(self.in_absmax, x.abs().amax(),
                               out=self.in_absmax)
+        return self._conv(x, pad)
+
+    def _forward_rows(self, x: torch.Tensor, rows: "halo.RowShard"
+                      ) -> torch.Tensor:
+        """This rank's block of output rows: the input rows its windows
+        read (halos of the neighbours, ``SAME`` zeros at the image's
+        edges), then the conv without vertical padding."""
+        if self.quant != "none":
+            raise ValueError(f"quant={self.quant!r} does not run "
+                             f"row-sharded")
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        if sh != sw:
+            raise ValueError("a row-sharded conv needs equal strides")
+        h = rows.rows_at(x.shape[-1])
+        x = halo.window(x, rows, 2, h, kh, sh, same_pads(h, kh, sh)[0], 0.0)
+        left, right = same_pads(x.shape[-1], kw, sw)
+        if left != right:
+            return self._conv(F.pad(x, (left, right, 0, 0)), 0)
+        return self._conv(x, (0, left))
+
+    def _conv(self, x: torch.Tensor, pad) -> torch.Tensor:
         if x.dtype == self.weight.dtype:
             return F.conv2d(x, self.weight, self.bias, self.stride, pad,
                             self.dilation, self.groups)
@@ -236,9 +270,13 @@ class BatchNorm(nn.BatchNorm2d):
             y = super().forward(x)
         else:
             xf = x.float()
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
-                              min=0.0)
+            sharding = halo.current()
+            if sharding is not None and sharding.stats_group is not None:
+                mean, var = _global_moments(xf, sharding.stats_group)
+            else:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = torch.clamp((xf * xf).mean(dim=(0, 2, 3))
+                                  - mean * mean, min=0.0)
             with torch.no_grad():
                 for ra, stat in ((self.running_mean, mean),
                                  (self.running_var, var)):
@@ -247,6 +285,19 @@ class BatchNorm(nn.BatchNorm2d):
             y = ((xf - mean[:, None, None]) * mul[:, None, None]
                  + self.bias[:, None, None])
         return y if self.dtype is None else y.to(self.dtype)
+
+
+def _global_moments(xf: torch.Tensor, group):
+    """Mean and biased variance ``max(E[x^2] - E[x]^2, 0)`` per channel
+    over every rank's batch and rows: one differentiable ``all_reduce``
+    of the fp32 sums of x and x^2 and the count."""
+    c = xf.shape[1]
+    sums = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)),
+                      xf.new_full((1,), xf.numel() / c)])
+    sums = halo.all_reduce_sum(sums, group)
+    mean = sums[:c] / sums[2 * c]
+    var = torch.clamp(sums[c:2 * c] / sums[2 * c] - mean * mean, min=0.0)
+    return mean, var
 
 
 def batch_norm(features: int) -> BatchNorm:
@@ -333,8 +384,18 @@ def nhwc(t: torch.Tensor) -> torch.Tensor:
 
 def max_pool(x: torch.Tensor, window: int = 2, stride: int = 2
              ) -> torch.Tensor:
-    """SAME max-pool on NCHW (padding with -inf, as flax does)."""
-    x = pad_same(x, (window, window), (stride, stride), value=-float("inf"))
+    """SAME max-pool on NCHW (padding with -inf, as flax does); row
+    sharded inside ``halo.use``."""
+    rows = halo.current_rows()
+    if rows is None:
+        x = pad_same(x, (window, window), (stride, stride),
+                     value=-float("inf"))
+    else:
+        h = rows.rows_at(x.shape[-1])
+        x = halo.window(x, rows, 2, h, window, stride,
+                        same_pads(h, window, stride)[0], -float("inf"))
+        x = F.pad(x, same_pads(x.shape[-1], window, stride) + (0, 0),
+                  value=-float("inf"))
     return F.max_pool2d(x, window, stride)
 
 

@@ -21,6 +21,8 @@ import math
 import numpy as np
 import torch
 
+from tfpose_tpu_torch.parallel import halo
+
 
 @functools.lru_cache(maxsize=256)
 def _area_weights_np(in_size: int, out_size: int) -> np.ndarray:
@@ -110,9 +112,31 @@ def _two_taps(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
 
 def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Half-pixel bilinear resize on (..., H, W, C), two taps per output
-    along each axis (:func:`_bilinear_weights_np`'s nonzero weights)."""
+    along each axis (:func:`_bilinear_weights_np`'s nonzero weights).
+
+    Row sharded inside ``parallel/halo.py:use`` (mobilenet_v2's 2x
+    upsample): ``x`` and the result are this rank's blocks of rows (the
+    result's ``out_h`` of them), the global heights are read off the
+    widths, and the rows the block's taps reach are fetched from the
+    neighbours first; each output is the same two-tap sum as unsharded."""
     *_, h, w, _ = x.shape
-    x = _two_taps(x.float(), _bilinear_taps_np(h, out_h), -3)
+    rows = halo.current_rows()
+    if rows is None:
+        x = _two_taps(x.float(), _bilinear_taps_np(h, out_h), -3)
+    else:
+        in_rows, out_rows = rows.rows_at(w), rows.rows_at(out_w)
+        i0, i1, w0, w1 = _bilinear_taps_np(in_rows, out_rows)
+        b = rows.bounds(out_rows)
+        o0, o1 = b[rows.index], b[rows.index + 1]
+        if o1 - o0 != out_h:
+            raise ValueError(f"rank {rows.index} holds {o1 - o0} of the "
+                             f"{out_rows} output rows, not {out_h}")
+        needs = [(int(i0[b[r]:b[r + 1]].min()),
+                  int(i1[b[r]:b[r + 1]].max()) + 1) for r in range(rows.n)]
+        x = halo.fetch(x.float(), rows, -3, in_rows, needs)
+        lo = needs[rows.index][0]
+        x = _two_taps(x, (i0[o0:o1] - lo, i1[o0:o1] - lo, w0[o0:o1],
+                          w1[o0:o1]), -3)
     return _two_taps(x, _bilinear_taps_np(w, out_w), -2)
 
 

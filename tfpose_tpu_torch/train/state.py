@@ -17,17 +17,34 @@ Semantics kept from flax and optax:
   * in a bf16 network the convs compute in bf16 while the parameters,
     the Adam moments, the BN statistics and the loss stay fp32;
   * cuDNN's TF32 is off for the forward and the backward.
+
+On a mesh (``parallel/mesh.py``) every rank takes the same global batch,
+keeps its block of it (``shard_batch``: its rows of the batch and, with
+more than one spatial rank, of the image and targets), and runs the
+step as JAX's sharded step computes it: BatchNorm's statistics over the
+whole batch and image (summed over the ranks), each rank's loss its
+block's stage-summed L2 divided by the global batch, the gradients and
+metrics summed over the ranks, then the same Adam step on every rank,
+which leaves the parameters, BN statistics and moments equal bit for
+bit on every rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from tfpose_tpu_torch.parallel import halo
+from tfpose_tpu_torch.parallel.mesh import (
+    all_reduce_grads,
+    shard_batch,
+    sharded,
+    sum_metrics,
+)
 from tfpose_tpu_torch.train.loss import stage_l2_loss
 
 
@@ -101,14 +118,17 @@ def to_device_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
 
 
 def batch_loss(net: nn.Module, batch: Dict[str, Any], rasterize: bool = False,
-               sigma: float = 1.0, paf_threshold: float = 1.0
+               sigma: float = 1.0, paf_threshold: float = 1.0,
+               batch_size: Optional[int] = None
                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The train-mode forward of ``batch`` and its stage-summed L2 loss.
+    """The train-mode forward of ``batch`` and its stage-summed L2 loss,
+    divided by ``batch_size`` (default: the batch's N).
 
     ``batch``: 'image' (N, H, W, 3) float or uint8, and either the
     targets 'heat' (N, H/8, W/8, 19) and 'paf' (N, H/8, W/8, 38) or, with
     ``rasterize``, NaN-padded 'joints' (N, P, 18, 2) at stride 8, made
-    into targets on the device (``train/targets.py``)."""
+    into targets on the device (``train/targets.py``; inside a
+    row-sharded forward, this rank's rows of them)."""
     device = next(net.parameters()).device
     b = to_device_batch(batch, device)
     net.train()
@@ -117,11 +137,11 @@ def batch_loss(net: nn.Module, batch: Dict[str, Any], rasterize: bool = False,
         from tfpose_tpu_torch.train.targets import batch_targets
         hs, ws = out["stages"][0][1].shape[1:3]
         t = batch_targets(b["joints"].float(), hs, ws, sigma=sigma,
-                          threshold=paf_threshold)
+                          threshold=paf_threshold, y0=halo.row_offset(ws))
         heat_gt, paf_gt = t["heat"], t["paf"]
     else:
         heat_gt, paf_gt = b["heat"].float(), b["paf"].float()
-    return stage_l2_loss(out["stages"], paf_gt, heat_gt)
+    return stage_l2_loss(out["stages"], paf_gt, heat_gt, batch_size)
 
 
 def adam_update(state: TrainState) -> None:
@@ -153,14 +173,15 @@ def adam_update(state: TrainState) -> None:
 
 
 def make_train_step(rasterize: bool = False, sigma: float = 1.0,
-                    paf_threshold: float = 1.0
+                    paf_threshold: float = 1.0, mesh=None
                     ) -> Callable[[TrainState, Dict[str, Any]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``: the
     loss, its gradients and an Adam step, updating ``state`` (which
     carries the network and the optimizer) in place. ``batch`` as
-    :func:`batch_loss` takes it. The metrics are 0-dim tensors on the
-    device (reading one waits for the step)."""
+    :func:`batch_loss` takes it; with ``mesh``, the global batch, of
+    which each rank trains on its block (module docstring). The metrics
+    are 0-dim tensors on the device (reading one waits for the step)."""
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
         cudnn = torch.backends.cudnn
@@ -168,11 +189,31 @@ def make_train_step(rasterize: bool = False, sigma: float = 1.0,
                          deterministic=cudnn.deterministic,
                          allow_tf32=False):
             state.net.zero_grad(set_to_none=True)
-            loss, metrics = batch_loss(state.net, batch, rasterize, sigma,
-                                       paf_threshold)
+            if mesh is None:
+                loss, metrics = batch_loss(state.net, batch, rasterize,
+                                           sigma, paf_threshold)
+            else:
+                n, h, w = batch["image"].shape[:3]
+                with sharded(mesh, image_hw=(h, w), stats=True):
+                    loss, metrics = batch_loss(
+                        state.net, shard_batch(mesh, batch), rasterize,
+                        sigma, paf_threshold, batch_size=n)
             loss.backward()
+        if mesh is not None:
+            all_reduce_grads(mesh, list(state.net.parameters()))
+            metrics = sum_metrics(mesh, metrics)
         adam_update(state)
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def replica_tensors(state: TrainState) -> List[torch.Tensor]:
+    """What must be equal on every rank of a mesh after a step: the
+    parameters, the floating buffers (BN statistics), Adam's moments."""
+    net = state.net
+    return (list(net.parameters())
+            + [b for b in net.buffers() if b.is_floating_point()]
+            + [state.mu[k] for k in sorted(state.mu)]
+            + [state.nu[k] for k in sorted(state.nu)])

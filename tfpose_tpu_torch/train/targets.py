@@ -20,15 +20,16 @@ from tfpose_tpu_torch.core.topology import (
 )
 
 
-def _grid(h: int, w: int, device):
-    yy = torch.arange(h, dtype=torch.float32, device=device)[:, None]
+def _grid(h: int, w: int, device, y0: int = 0):
+    yy = torch.arange(y0, y0 + h, dtype=torch.float32, device=device)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=device)[None, :]
     return yy, xx
 
 
-def _heat(joints: torch.Tensor, h: int, w: int, sigma: float) -> torch.Tensor:
-    """(N, P, 18, 2) -> (N, h, w, 19)."""
-    yy, xx = _grid(h, w, joints.device)
+def _heat(joints: torch.Tensor, h: int, w: int, sigma: float,
+          y0: int = 0) -> torch.Tensor:
+    """(N, P, 18, 2) -> (N, h, w, 19): rows y0 .. y0 + h - 1."""
+    yy, xx = _grid(h, w, joints.device, y0)
     px, py = joints[..., 0], joints[..., 1]                  # (N, P, 18)
     valid = torch.isfinite(px)
     px = torch.where(valid, px, torch.full_like(px, -1e6))
@@ -46,11 +47,11 @@ def _heat(joints: torch.Tensor, h: int, w: int, sigma: float) -> torch.Tensor:
 
 
 def _paf(joints: torch.Tensor, h: int, w: int,
-         threshold: float) -> torch.Tensor:
-    """(N, P, 18, 2) -> (N, h, w, 38)."""
+         threshold: float, y0: int = 0) -> torch.Tensor:
+    """(N, P, 18, 2) -> (N, h, w, 38): rows y0 .. y0 + h - 1."""
     dev = joints.device
     pairs = torch.as_tensor(pairs_array(), device=dev)
-    yy, xx = _grid(h, w, dev)
+    yy, xx = _grid(h, w, dev, y0)
     a = joints[:, :, pairs[:, 0], :]                         # (N, P, 19, 2)
     b = joints[:, :, pairs[:, 1], :]
     valid = torch.isfinite(a[..., 0]) & torch.isfinite(b[..., 0])
@@ -94,9 +95,11 @@ def paf_targets(joints: torch.Tensor, h: int, w: int,
 
 
 def batch_targets(joints_batch: torch.Tensor, h: int, w: int,
-                  sigma: float = 1.0, threshold: float = 1.0
+                  sigma: float = 1.0, threshold: float = 1.0, y0: int = 0
                   ) -> Dict[str, torch.Tensor]:
     """(N, P, 18, 2) -> {"heat": (N, h, w, 19), "paf": (N, h, w, 38)},
-    the whole batch in one set of ops."""
-    return {"heat": _heat(joints_batch, h, w, sigma),
-            "paf": _paf(joints_batch, h, w, threshold)}
+    the whole batch in one set of ops; ``y0`` > 0 gives the rows
+    ``y0 .. y0 + h - 1`` of taller maps (one rank's block of a row-sharded
+    batch: every cell depends on its own coordinates alone)."""
+    return {"heat": _heat(joints_batch, h, w, sigma, y0),
+            "paf": _paf(joints_batch, h, w, threshold, y0)}
