@@ -134,6 +134,23 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      ``decode_adaptive`` (K1 and K3; K1 again at K=128 where a scene
      escalates) against the NumPy oracle, and every other default scene
      against the C++ oracle where ``g++`` is present: 0 mismatches.
+ 13. tools, path by path with the launch counts reset before each: the
+     broadcaster (``cli/broadcaster.py:build_service``, thin368_coco as
+     the model's converted checkpoint, 432x368, upsample 4) on
+     127.0.0.1 at ``--max-batch`` 1 and 8, 8 rendered 640x480 frames
+     through ``cli/visualization.py:annotate``, the humans equal to
+     ``inference``'s on the card (parts exact, coords 1e-6, scores
+     1e-4), K2 launched 8 times at 1 and K1 and K3 once per flush at 8;
+     BASELINE config 5 (``evaluation/backbone_sweep.py``, bf16, 50
+     scenes each, with throughput) over thin368_coco, v2large160_coco,
+     v2small160_coco and v1full160_coco, each AP50 at least its gate in
+     ``tests/test_coco_path.py`` (0.95, 0.88, 0.90, 0.92; the CMU row's
+     checkpoint stays off the card); through ``tfpose-torch-profile``'s
+     ``main``, the decode's stages (``profiles/stages.py``) at B = 1 and
+     16, the forward's device profile (``profiles/forward.py``) of thin
+     at B = 1 and 16 and CMU at B = 1 and 8, and CMU's per-op table at
+     B = 8 (``profiles/ops.py``), each printed as a JSON line of its
+     own.
 
 Any failed check raises, so the run exits non-zero and prints no result.
 The last lines are the kernels driven, one JSON line per the kernels'
@@ -142,8 +159,10 @@ numbers, the card's ``nvidia-smi`` name and power limit, and
 the port only, and writes nothing outside ``tfpose_tpu_torch/_build/``
 (phase 9's checkpoints go to ``_build/chip_smoke_train/``, phase 10's
 files to ``_build/chip_smoke_convert/``, phase 12's C++ oracle library
-to ``_build/``) but phase 11's rendezvous files, in a temporary
-directory that ``launch`` removes.
+to ``_build/``, phase 13's model link and sweep document to
+``_build/chip_smoke_models/`` and ``_build/chip_smoke_sweep.json``) but
+phase 11's rendezvous files and the profiles' traces, in temporary
+directories that are removed.
 """
 
 from __future__ import annotations
@@ -151,7 +170,6 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -186,14 +204,6 @@ def phase(name: str):
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
-
-
-def smi_name_and_power() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=10, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def time_cuda(fn, reps: int = 30, inner: int = 10):
@@ -745,6 +755,7 @@ def main() -> int:
     from tfpose_tpu_torch.pipeline.multiscale import windowed_forward
     from tfpose_tpu_torch.pipeline.preprocess import downscale_area
     from tfpose_tpu_torch.utils import synthetic
+    from tfpose_tpu_torch.utils.profiling import card_name_and_power
 
     dev = torch.device("cuda")
     wrappers = {"smooth_nms_topk_raw": smooth_nms_topk_raw,
@@ -756,7 +767,7 @@ def main() -> int:
 
     with phase("0 device"):
         kind = torch.cuda.get_device_name(0)
-        smi = smi_name_and_power()
+        smi = card_name_and_power()
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         log(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__}"
@@ -2169,6 +2180,136 @@ def main() -> int:
             f"8 rendered 432x368 scenes through thin368_coco, 0 mismatches, "
             f"{ck.dev_px_n} keypoints, C++ oracle "
             f"{ck.cpp_mismatch}/{ck.cpp_total}")
+
+    from tfpose_tpu_torch import profiles
+    from tfpose_tpu_torch.cli import broadcaster, visualization
+    from tfpose_tpu_torch.evaluation import backbone_sweep
+    from tfpose_tpu_torch.profiles import stages as stage_profile
+
+    with phase("13 tools"):
+        # the broadcaster loads the model's converted checkpoint from
+        # $TFPOSE_TPU_MODEL_DIR/jax/<model>/: thin368_coco, linked there
+        model_dir = os.path.join(ROOT, "tfpose_tpu_torch", "_build",
+                                 "chip_smoke_models")
+        link = os.path.join(model_dir, "jax", "mobilenet_thin",
+                            "params.msgpack")
+        os.makedirs(os.path.dirname(link), exist_ok=True)
+        if not os.path.lexists(link):
+            os.symlink(CHECKPOINT, link)
+        old_dir = os.environ.get("TFPOSE_TPU_MODEL_DIR")
+        os.environ["TFPOSE_TPU_MODEL_DIR"] = model_dir
+        bframes = render_frames(np.random.default_rng(1313), 8, 480, 640)
+        want = [humans_to_msg(est.inference(f, upsample_size=4.0), 640, 480)
+                for f in bframes]
+        check(sum(len(m.persons) for m in want) > 0, "broadcaster: no humans")
+        for max_batch in (1, 8):
+            path = f"broadcaster_b{max_batch}"
+            svc = broadcaster.build_service(broadcaster.parse_args(
+                ["--port", "0", "--max-batch", str(max_batch)]))
+            client = None
+            try:
+                check(svc.estimator.device.type == "cuda",
+                      "broadcaster not on the card")
+                client = PoseClient(*svc.start())
+                t = time.perf_counter()
+                got = drive(path, lambda: [visualization.annotate(client, f)
+                                           for f in bframes])
+                secs = time.perf_counter() - t
+                flushes = (sum(svc._batcher.batch_sizes.values())
+                           if max_batch > 1 else 0)
+            finally:
+                if client is not None:
+                    client.close()
+                svc.stop()
+            n = path_launches[path]
+            if max_batch == 1:
+                check(n == {"smooth_nms_topk_raw": 0, "smooth_nms": 8,
+                            "score_candidates_raw": 0, "smooth_nms_topk": 0},
+                      f"{path}: launches {n}, want K2 8 only")
+            else:
+                check(flushes >= 1 and n == {
+                    "smooth_nms_topk_raw": flushes, "smooth_nms": 0,
+                    "score_candidates_raw": flushes, "smooth_nms_topk": 0},
+                    f"{path}: launches {n}, want K1 and K3 once per flush "
+                    f"({flushes})")
+            for i, ((humans, img), w) in enumerate(zip(got, want)):
+                same_persons(humans_to_msg(humans, 640, 480), w,
+                             f"{path} frame {i}")
+                check(img.shape == bframes[i].shape
+                      and (not humans or (img != bframes[i]).any()),
+                      f"{path} frame {i}: no skeleton drawn")
+            log(f"broadcaster (thin368_coco, 432x368, max_batch {max_batch}"
+                f"): 8 rendered 640x480 frames through visualization."
+                f"annotate in {secs * 1e3:.1f} ms, humans equal inference's "
+                f"on the card (parts exact, coords 1e-6, scores 1e-4); "
+                f"launches {n} [{smi}]")
+        if old_dir is None:
+            del os.environ["TFPOSE_TPU_MODEL_DIR"]
+        else:
+            os.environ["TFPOSE_TPU_MODEL_DIR"] = old_dir
+
+        # BASELINE config 5: the bf16 sweep over the checkpoints on the card
+        log("sweep: the cmu row is not run: its checkpoint cmu160_coco "
+            "(200 MB) is not copied to the card")
+        gates = {"mobilenet_thin": 0.95, "mobilenet_v2_large": 0.88,
+                 "mobilenet_v2_small": 0.90, "mobilenet": 0.92}
+        t = time.perf_counter()
+        doc = drive("backbone_sweep", lambda: backbone_sweep.main([
+            "--models", ",".join(gates), "--scenes", "50", "--out",
+            os.path.join(ROOT, "tfpose_tpu_torch", "_build",
+                         "chip_smoke_sweep.json")]))
+        launched("backbone_sweep", "smooth_nms_topk_raw",
+                 "score_candidates_raw")
+        check(set(doc["backbones"]) == set(gates),
+              f"sweep rows {sorted(doc['backbones'])}")
+        for model, gate in gates.items():
+            row = doc["backbones"][model]
+            check(row["AP50"] >= gate and row["img_per_s"] > 0,
+                  f"sweep {model}: AP50 {row['AP50']} (gate {gate})")
+        log(f"backbone sweep, 50 scenes each, bf16, in "
+            f"{time.perf_counter() - t:.2f} s; every AP50 gate held [{smi}]")
+
+        # the decode's stages, the forward and the per-op table, each
+        # through tfpose-torch-profile's main, which prints its JSON lines
+        for b in (1, 16):
+            path = f"profile_stages_b{b}"
+            sdoc = drive(path, lambda: profiles.main(
+                ["stages", "--batch", str(b), "--json"]))
+            launched(path, "smooth_nms_topk", "score_candidates_raw",
+                     "smooth_nms_topk_raw")
+            check(all(np.isfinite(r["ms_per_img"]) and r["busy_ms_per_img"] > 0
+                      and r["kernels_per_call"] > 0 for r in sdoc["stages"]),
+                  f"{path}: {sdoc}")
+            log(stage_profile.report(sdoc))
+        thin_flops = est.get_flops()
+        fdocs = drive("profile_forward", lambda: profiles.main(["forward"]))
+        check(not any(path_launches["profile_forward"].values()),
+              "profile_forward launched a decode kernel")
+        check([(r["model"], r["batch"]) for r in fdocs] == [
+            ("mobilenet_thin", 1), ("mobilenet_thin", 16), ("cmu", 1),
+            ("cmu", 8)], f"profile_forward configs {fdocs}")
+        for r in fdocs:
+            check(0 < r["tensor_peak_pct"] < 100 and r["top_ops"],
+                  f"profile_forward: {r}")
+            if r["model"] == "mobilenet_thin":
+                check(abs(r["gflops"] - thin_flops * r["batch"] / 1e9)
+                      <= 0.01, f"profile_forward: {r['gflops']} GFLOP, "
+                      f"get_flops {thin_flops * r['batch'] / 1e9}")
+            log(f"forward {r['model']} {r['hw']} B={r['batch']} bf16: device "
+                f"p50 {r['device_p50_ms']} ms, {r['gflops']} GFLOP, "
+                f"{r['achieved_tflops']} TFLOP/s = {r['tensor_peak_pct']} % "
+                f"of {r['peak']} [{smi}]")
+        odoc = drive("profile_ops cmu B=8",
+                     lambda: profiles.main(["ops", "--json"]))
+        check(odoc["model"] == "cmu" and odoc["batch"] == 8
+              and odoc["buckets_ms"].get("conv", 0.0) > 0
+              and abs(sum(odoc["buckets_ms"].values())
+                      - odoc["op_total_ms"]) <= 1e-6 * odoc["op_total_ms"],
+              f"profile_ops: {odoc['buckets_ms']}")
+        log(f"per-op table cmu 656x368 B=8 bf16: {odoc['op_total_ms']:.3f} ms "
+            f"of device time per forward, buckets "
+            f"{ {k: round(v, 3) for k, v in odoc['buckets_ms'].items()} } "
+            f"[{smi}]")
 
     # every path's launches, the serving and bf16 paths included
     for entry in kernels:

@@ -96,13 +96,14 @@ def main() -> int:
     from tfpose_tpu_torch.cli import train as train_cli
     from tfpose_tpu_torch.ops.kernels import build
     from tfpose_tpu_torch.parallel.mesh import launch, make_mesh
+    from tfpose_tpu_torch.utils.profiling import card_name_and_power
 
     if torch.cuda.device_count() < N_CARDS:
         print(f"torch_mesh_cards: needs {N_CARDS} cards, has "
               f"{torch.cuda.device_count()}", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
-    smi = cs.smi_name_and_power()
+    smi = card_name_and_power()
     cs.log(f"{N_CARDS} x {torch.cuda.get_device_name(0)} | {smi} | torch "
            f"{torch.__version__} cuda {torch.version.cuda}")
     cs.log(f"kernels built in {build.build_all():.2f} s")

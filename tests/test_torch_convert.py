@@ -322,8 +322,10 @@ def test_checkpoint_cli_prints_run_checkpoints_tree(capsys):
 def test_console_scripts():
     """The port's console scripts mirror the JAX package's, one for
     one, plus ``tfpose-torch-parity-sweep`` (the JAX package runs its
-    sweep as ``python -m tfpose_tpu.evaluation.parity_sweep``), and each
-    entry function exists."""
+    sweep as ``python -m tfpose_tpu.evaluation.parity_sweep``) and the
+    counterparts of the repo's tool scripts (``scripts/broadcaster.py``,
+    ``visualization.py``, ``sweep_backbones.py``, ``profile_*.py``), and
+    each entry function exists."""
     import re
 
     from tfpose_tpu_torch.cli import entry
@@ -335,7 +337,9 @@ def test_console_scripts():
                  if not k.startswith("tfpose-torch-")}
     ours = {k[len("tfpose-torch-"):] for k in scripts
             if k.startswith("tfpose-torch-")}
-    assert ours == jax_names | {"parity-sweep"}
+    assert ours == jax_names | {"parity-sweep", "broadcaster",
+                                "visualization", "sweep-backbones",
+                                "profile"}
     for key, target in scripts.items():
         if key.startswith("tfpose-torch-"):
             assert callable(getattr(entry, target.split(":")[1]))

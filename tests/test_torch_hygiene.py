@@ -63,8 +63,30 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     assert int(out.stdout.split()[0]) >= 25  # every module was imported
 
 
+# the counterparts of the repo's tool scripts (scripts/broadcaster.py,
+# visualization.py, sweep_backbones.py, profile_*.py)
+TOOL_MODULES = ("tfpose_tpu_torch.cli.broadcaster",
+                "tfpose_tpu_torch.cli.visualization",
+                "tfpose_tpu_torch.evaluation.backbone_sweep",
+                "tfpose_tpu_torch.profiles",
+                "tfpose_tpu_torch.profiles.stages",
+                "tfpose_tpu_torch.profiles.forward",
+                "tfpose_tpu_torch.profiles.ops")
+
+
+def test_tool_modules_import_nothing_forbidden():
+    """The tools load no jax, no module of the JAX package and no cv2
+    (the visualization client imports it in ``main`` only)."""
+    out = _run("import importlib\n"
+               f"for name in {TOOL_MODULES!r}:\n"
+               "    importlib.import_module(name)\n")
+    assert out.returncode == 0, out.stderr
+    assert "CLEAN" in out.stdout
+
+
 # the only places the port may import cv2, inside these functions: the
-# service's JPEG payload decode, the CLIs' file, video and window I/O,
+# service's JPEG payload decode, the CLIs' file, video and window I/O
+# (the visualization client's too),
 # the training data's augmentations and PNG export, and the Datum
 # records' PNG encode and decode
 CV2_FUNCTIONS = {
@@ -73,6 +95,7 @@ CV2_FUNCTIONS = {
     ("cli/run.py", "main"),
     ("cli/run_video.py", "main"),
     ("cli/run_webcam.py", "main"),
+    ("cli/visualization.py", "main"),
     ("train/augment.py", "random_scale"),
     ("train/augment.py", "random_rotation"),
     ("train/augment.py", "random_flip"),

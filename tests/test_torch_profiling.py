@@ -105,16 +105,52 @@ def test_device_event_durations_of_a_torch_trace(tmp_path):
 def test_call_busy_time_of_a_torch_trace():
     """Each ``device_p50_ms#i`` range's device-busy time, the union of
     its device events' intervals (overlapping streams count once), from
-    a hand-written trace."""
+    a hand-written trace. A device event belongs to the range of the
+    runtime call with its correlation id: the device's timestamps here
+    lie 1 s after the host's, as after minutes of drift, and a range
+    whose launches have no device record is left out."""
     ranges = [{"ph": "X", "cat": "user_annotation",
                "name": f"device_p50_ms#{i}", "pid": 1, "tid": 1,
-               "ts": 100.0 * i, "dur": 90.0} for i in range(3)]
+               "ts": 100.0 * i, "dur": 90.0} for i in range(4)]
+    starts = [5.0, 30.0, 105.0, 108.0, 220.0, 230.0, 240.0]
     dev = [_kernel("a", 5.0, 10.0), _kernel("b", 30.0, 20.0),
            _kernel("a", 105.0, 10.0), _kernel("e", 108.0, 12.0),
            _kernel("c", 220.0, 4.0), _kernel("d", 230.0, 40.0),
            _kernel("f", 240.0, 5.0)]
-    busy = profiling._call_busy_ms(_torch_trace(ranges + dev)["traceEvents"])
+    launches = [{"ph": "X", "cat": "cuda_runtime",
+                 "name": "cudaLaunchKernel", "pid": 1, "tid": 1,
+                 "ts": ts - 1.0, "dur": 1.0, "args": {"correlation": ts}}
+                for ts in starts + [310.0]]
+    for e in dev:
+        e["ts"] += 1e6
+    events = _torch_trace(ranges + launches + dev)["traceEvents"]
+    busy = profiling._call_busy_ms(events)
     assert busy == pytest.approx([0.030, 0.015, 0.044])
+    assert [[e["name"] for e in d] for d in
+            profiling.call_device_events(events)] == [
+        ["a", "b"], ["a", "e"], ["c", "d", "f"], []]
+
+
+def test_call_event_durations_leave_out_the_warm_up(tmp_path):
+    """``call_event_durations_ms``: the durations by name of the traced
+    calls' device events only (``device_p50_ms``'s warm-up calls run
+    before its ranges), and how many calls the trace holds events of."""
+    ranges = [{"ph": "X", "cat": "user_annotation",
+               "name": f"device_p50_ms#{i}", "pid": 1, "tid": 1,
+               "ts": 1000.0 + 100.0 * i, "dur": 90.0} for i in range(3)]
+    launch_ts = [10.0, 20.0, 1010.0, 1020.0, 1110.0]
+    launches = [{"ph": "X", "cat": "cuda_runtime",
+                 "name": "cudaLaunchKernel", "pid": 1, "tid": 1,
+                 "ts": ts, "dur": 1.0, "args": {"correlation": ts}}
+                for ts in launch_ts]
+    dev = [_kernel("warm", 10.0, 50.0), _kernel("warm", 20.0, 50.0),
+           _kernel("a", 1010.0, 4.0), _kernel("b", 1020.0, 2.0),
+           _kernel("a", 1110.0, 6.0)]
+    (tmp_path / "h.1.2.pt.trace.json").write_text(
+        json.dumps(_torch_trace(ranges + launches + dev)))
+    durs, calls = profiling.call_event_durations_ms(str(tmp_path))
+    assert durs == {"a": [0.004, 0.006], "b": [0.002]}
+    assert calls == 2
 
 
 def test_device_timers_raise_without_a_card():

@@ -1,7 +1,10 @@
 """Console-script entry points of the port (``pyproject.toml``:
 ``tfpose-torch-run``, ``-video``, ``-webcam``, ``-eval``, ``-train``,
-``-convert``, ``-dataworker``, ``-parity-sweep``), the
-counterparts of ``tfpose_tpu/cli/entry.py``."""
+``-convert``, ``-dataworker``, ``-parity-sweep``, ``-broadcaster``,
+``-visualization``, ``-sweep-backbones``, ``-profile``), the
+counterparts of ``tfpose_tpu/cli/entry.py`` and of the repo's
+``scripts/broadcaster.py``, ``visualization.py``, ``sweep_backbones.py``
+and ``profile_*.py``."""
 
 from __future__ import annotations
 
@@ -43,4 +46,24 @@ def dataworker_main():
 
 def parity_sweep_main():
     from tfpose_tpu_torch.evaluation.parity_sweep import main
+    main()
+
+
+def broadcaster_main():
+    from tfpose_tpu_torch.cli.broadcaster import main
+    main()
+
+
+def visualization_main():
+    from tfpose_tpu_torch.cli.visualization import main
+    main()
+
+
+def sweep_backbones_main():
+    from tfpose_tpu_torch.evaluation.backbone_sweep import main
+    main()
+
+
+def profile_main():
+    from tfpose_tpu_torch.profiles import main
     main()

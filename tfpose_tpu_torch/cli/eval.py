@@ -10,8 +10,8 @@
   (:func:`coco_eval.synthetic_e2e`), the trained-checkpoint gate;
 * ``--coco-json``: images read with cv2 from ``--coco-dir`` through
   ``inference`` (``inference_windowed`` for images over 1.5x the network
-  size with ``--multi-scale``), scored by the port's OKS AP (it carries
-  no pycocotools).
+  size with ``--multi-scale``), scored by pycocotools where it is
+  installed, else by the port's OKS AP.
 
 ``--quantize`` runs the int8 backbone (calibrated post-training
 quantisation, ``TfPoseEstimator(quantize=True)``).
@@ -38,6 +38,7 @@ from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.estimator import TfPoseEstimator
 from tfpose_tpu_torch.evaluation.coco_eval import (
     evaluate_oks_ap,
+    evaluate_with_pycocotools,
     humans_to_detections,
     mean_keypoint_deviation,
     person_to_gt,
@@ -86,7 +87,9 @@ def eval_coco(args, e):
                         (i + 1) / (time.time() - t0))
     with open(args.write_json, "w") as f:
         json.dump(dets, f)
-    stats = evaluate_oks_ap(gts, dets)
+    stats = evaluate_with_pycocotools(args.coco_json, dets)
+    if stats is None:
+        stats = evaluate_oks_ap(gts, dets)
     stats.update(mean_keypoint_deviation(gts, dets))
     return stats
 

@@ -4,15 +4,16 @@
 ``write_coco_json`` maps the 18-part model back to COCO-17 keypoint
 order with per-part scores. AP is a self-contained OKS-based
 COCOeval-keypoints reimplementation (same OKS kappas, same 0.50:0.95
-thresholds, same 101-point interpolated AP); the JAX package's optional
-pycocotools path is not carried. :func:`synthetic_e2e` is the port's
+thresholds, same 101-point interpolated AP);
+:func:`evaluate_with_pycocotools` gives the reference numbers where
+pycocotools is installed. :func:`synthetic_e2e` is the port's
 counterpart of ``eval.py --synthetic-e2e``: rendered scenes through an
 estimator, scored against their ground-truth skeletons.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -217,6 +218,27 @@ def mean_keypoint_deviation(gts: Dict[int, List[dict]], dts: List[dict],
         "matched_humans": n_h,
         "missed_keypoints": n_missed,
     }
+
+
+def evaluate_with_pycocotools(gt_json: str, dets: List[dict]
+                              ) -> Optional[Dict[str, float]]:
+    """COCOeval's keypoint AP of ``dets`` against the annotation file
+    ``gt_json`` where pycocotools is installed (the reference numbers);
+    ``None`` without it, and the caller falls back to
+    :func:`evaluate_oks_ap`."""
+    try:
+        from pycocotools.coco import COCO
+        from pycocotools.cocoeval import COCOeval
+    except ImportError:
+        return None
+    coco_gt = COCO(gt_json)
+    coco_dt = coco_gt.loadRes(dets)
+    ev = COCOeval(coco_gt, coco_dt, "keypoints")
+    ev.evaluate()
+    ev.accumulate()
+    ev.summarize()
+    return {"AP": ev.stats[0], "AP50": ev.stats[1], "AP75": ev.stats[2],
+            "AR": ev.stats[5]}
 
 
 def person_to_gt(person: np.ndarray) -> dict:

@@ -126,14 +126,19 @@ class BatchedEvaluator:
         return Assembled(*(gather_blocks(t, blocks, mesh.data_index,
                                          mesh.data) for t in out))
 
+    def forward_decode(self, x: torch.Tensor) -> Assembled:
+        """(B, H, W, 3) uint8 at the network size, on the device -> the
+        backbone and the padded decode, on the device (one device)."""
+        return decode_batch(run_backbone(self.net, normalize(x)),
+                            *self.up, self.decode_params)
+
     def run_batch(self, imgs: np.ndarray) -> List[List]:
         """(B, H, W, 3) uint8 at the network size -> list of per-image
         Human lists (on a mesh, every rank is given the same batch and
         returns the whole list)."""
         x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
         if self.mesh is None:
-            out = decode_batch(run_backbone(self.net, normalize(x)),
-                               *self.up, self.decode_params)
+            out = self.forward_decode(x)
         else:
             out = self._decode_sharded(x)
         arrays = Assembled(*(t.cpu().numpy() for t in out))

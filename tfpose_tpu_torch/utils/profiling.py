@@ -8,8 +8,11 @@ on ``torch.profiler`` (CUPTI) and CUDA events.
   kernels, copies, memsets) of the newest trace in ``log_dir``, grouped
   by name;
 * :func:`device_p50_ms` is the median device-busy time of one call,
-  from a trace; :func:`amortized_ms` the per-call time of a loop, timed
-  with CUDA events as the slope between N and N // 4 calls.
+  from a trace (:func:`call_device_events` gives each traced call's
+  device events, :func:`call_event_durations_ms` their durations by
+  name); :func:`amortized_ms` the per-call time of a loop, timed
+  with CUDA events as the slope between N and N // 4 calls;
+* :func:`card_name_and_power` names the card a measurement ran on.
 
 The device measurements need a CUDA card and raise without one: a CPU
 tensor has no device lane, and no number from the CPU stands in for a
@@ -19,21 +22,38 @@ counterpart and raises.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import glob
 import gzip
 import json
 import os
 import socket
+import subprocess
 import tempfile
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 # chrome-trace categories of the events that ran on the device
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def card_name_and_power(device="cuda") -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` reports them (e.g. "NVIDIA
+    H100 80GB HBM3, 700.00 W"), to write beside every time taken on it;
+    ``"cpu"`` for the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader", f"--id={device.index or 0}"],
+        capture_output=True, text=True, timeout=10, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def _activities():
@@ -144,6 +164,15 @@ def _require_cuda(args) -> None:
                          "CPU tensor has no device lane")
 
 
+# A trace that holds fewer than half the calls is taken again, this many
+# times in all. In a process that has traced many times, the device lane
+# of a new trace starts late (on an H100: the first 5.7 ms of records
+# missing after ~500 s and hundreds of traces), so each trace first runs
+# the call outside the ranges for WARMUP_S, doubled at each new attempt.
+TRACE_ATTEMPTS = 8
+WARMUP_S = 0.1
+
+
 def device_p50_ms(fn, args, n_runs: int = 30, log_dir: str = "") -> float:
     """Median device time (ms) of one call of ``fn(*args)``: each call
     is traced between synchronisations, and its time is how long the
@@ -152,47 +181,100 @@ def device_p50_ms(fn, args, n_runs: int = 30, log_dir: str = "") -> float:
     duration is in JAX's version; the host's gaps between launches do
     not count, and neither does the profiler's own host cost. The median
     is over the calls whose events the trace holds, at least half of
-    them. ``args`` must hold CUDA tensors; ``log_dir`` keeps the trace
-    where given."""
+    them (a trace that holds fewer is taken again, up to
+    :data:`TRACE_ATTEMPTS` traces; each first calls ``fn`` outside the
+    ranges for :data:`WARMUP_S`, doubled at each attempt). ``args`` must
+    hold CUDA tensors; ``log_dir`` keeps the trace where given."""
     from torch.profiler import profile, record_function
 
     _require_cuda(args)
     fn(*args)  # warm-up outside the trace
     torch.cuda.synchronize()
-    with profile(activities=_activities()) as prof:
-        for i in range(n_runs):
-            with record_function(f"device_p50_ms#{i}"):
+    for attempt in range(TRACE_ATTEMPTS):
+        with profile(activities=_activities()) as prof:
+            t_end = time.perf_counter() + WARMUP_S * 2 ** attempt
+            while True:  # the device lane's start, outside every range
                 fn(*args)
                 torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(log_dir or tmp,
-                            f"device_p50.{os.getpid()}.pt.trace.json")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            busy = _call_busy_ms(json.load(f)["traceEvents"])
-    if 2 * len(busy) < n_runs:  # CUPTI now and then loses records
-        raise RuntimeError(f"device events of only {len(busy)} of "
-                           f"{n_runs} calls in the trace")
-    return float(np.percentile(busy, 50))
+                if time.perf_counter() >= t_end:
+                    break
+            for i in range(n_runs):
+                with record_function(f"device_p50_ms#{i}"):
+                    fn(*args)
+                    torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(log_dir or tmp,
+                                f"device_p50.{os.getpid()}.pt.trace.json")
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                busy = _call_busy_ms(json.load(f)["traceEvents"])
+        if 2 * len(busy) >= n_runs:
+            return float(np.percentile(busy, 50))
+        time.sleep(0.5)
+    raise RuntimeError(f"device events of only {len(busy)} of {n_runs} "
+                       f"calls in each of {TRACE_ATTEMPTS} traces")
+
+
+def call_ranges(events) -> list:
+    """The (start, end) host times of a trace's ``device_p50_ms#i``
+    ranges, in order."""
+    return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+                  and str(e.get("name", "")).startswith("device_p50_ms#"))
+
+
+def call_device_events(events) -> list:
+    """The device events of each ``device_p50_ms#i`` range of a trace, in
+    the ranges' order: those whose correlation id is that of a runtime
+    call made within the range. The device's timestamps are converted to
+    the host's clock, and the two drift apart over a long process (a
+    short call's kernels need not lie within its range after minutes),
+    so the runtime call, on the host's clock, names the range."""
+    ranges = call_ranges(events)
+    starts = [lo for lo, _ in ranges]
+    owner = {}
+    for e in events:
+        corr = e.get("args", {}).get("correlation")
+        if (corr is None or e.get("ph") != "X"
+                or e.get("cat") in DEVICE_CATEGORIES):
+            continue
+        i = bisect.bisect_right(starts, e["ts"]) - 1
+        if i >= 0 and e["ts"] <= ranges[i][1]:
+            owner[corr] = i
+    out = [[] for _ in ranges]
+    for e in _device_events(events):
+        i = owner.get(e.get("args", {}).get("correlation"))
+        if i is not None:
+            out[i].append(e)
+    return out
+
+
+def call_event_durations_ms(log_dir: str) -> Tuple[Dict[str, list], int]:
+    """The device events of the traced calls of ``device_p50_ms`` (its
+    ``device_p50_ms#i`` ranges) in the newest trace under ``log_dir``:
+    their durations (ms) grouped by name, as
+    :func:`device_event_durations_ms` groups a trace's, and the number
+    of calls whose events the trace holds. The warm-up calls outside the
+    ranges are left out."""
+    calls = [c for c in call_device_events(
+        _newest_trace(log_dir)["traceEvents"]) if c]
+    out: Dict[str, list] = {}
+    for e in (e for c in calls for e in c):
+        out.setdefault(e["name"], []).append(e["dur"] / 1e3)
+    return out, len(calls)
 
 
 def _call_busy_ms(events) -> list:
-    """Device-busy time (ms) of each ``device_p50_ms#i`` range of a
-    trace: the union of the intervals of its device events, which lie
-    within the range (it ends after the synchronisation)."""
-    ranges = [(e["ts"], e["ts"] + e["dur"]) for e in events
-              if e.get("ph") == "X" and e.get("cat") == "user_annotation"
-              and str(e.get("name", "")).startswith("device_p50_ms#")]
-    dev = _device_events(events)
+    """Device-busy time (ms) of each ``device_p50_ms#i`` range of a trace
+    whose device events it holds (:func:`call_device_events`): the union
+    of their intervals."""
     busy = []
-    for lo, hi in sorted(ranges):
-        inside = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev
-                        if lo <= e["ts"] <= hi)
-        if not inside:
+    for dev in call_device_events(events):
+        if not dev:
             continue
         total, end = 0.0, float("-inf")
-        for t0, t1 in inside:
+        for t0, t1 in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
             total += max(0.0, t1 - max(t0, end))
             end = max(end, t1)
         busy.append(total / 1e3)
