@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -60,6 +59,7 @@ from tfpose_tpu_torch.pipeline.preprocess import (
     prepare_bilinear,
 )
 from tfpose_tpu_torch.utils.draw import draw_humans as _draw_humans
+from tfpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("TfPoseEstimator")
 
@@ -195,19 +195,23 @@ class TfPoseEstimator:
                  bilinear: bool = False) -> torch.Tensor:
         """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, 57) fp32;
         ``bilinear`` resizes as :func:`prepare_bilinear` does."""
-        x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
+        with span("model.upload"):
+            x = torch.as_tensor(np.ascontiguousarray(imgs),
+                                device=self.device)
         return self._forward_uint8(x, net_h, net_w, bilinear)
 
     def _forward_uint8(self, x: torch.Tensor, net_h: int, net_w: int,
                        bilinear: bool = False) -> torch.Tensor:
         """:meth:`_forward` of uint8 (N, H, W, 3) already on the device."""
         resize = prepare_bilinear if bilinear else prepare
-        return run_backbone(self.net, resize(x, net_h, net_w))
+        with span("model.forward"):
+            return run_backbone(self.net, resize(x, net_h, net_w))
 
     def _forward_windows(self, wins: torch.Tensor) -> torch.Tensor:
         """Windows (N, h, w, 3), uint8 or unrounded float, -> their
         concat_stage7 maps in one backbone batch."""
-        return run_backbone(self.net, normalize(wins))
+        with span("model.forward"):
+            return run_backbone(self.net, normalize(wins))
 
     def _decode_params(self, escalated: bool = False) -> DecodeParams:
         return (self.decode_params.escalated() if escalated
@@ -244,9 +248,11 @@ class TfPoseEstimator:
         the peak cap saturated; returns numpy arrays and notes the
         saturation."""
         out = decode_fn(self.decode_params)
-        if self._should_escalate(out.peak_saturated):
-            out = decode_fn(self._decode_params(True))
-        arrays = Assembled(*(t.cpu().numpy() for t in out))
+        with span("api.fetch"):
+            if self._should_escalate(out.peak_saturated):
+                with span("decode.escalate"):
+                    out = decode_fn(self._decode_params(True))
+            arrays = Assembled(*(t.cpu().numpy() for t in out))
         self._note_saturation(arrays.peak_saturated)
         return arrays
 
@@ -288,17 +294,18 @@ class TfPoseEstimator:
         up_h = int(net_h / 8 * upsample_size)
         up_w = int(net_w / 8 * upsample_size)
 
-        t = time.time()
-        net_out = self._forward(npimg[None], net_h, net_w,
-                                self.device_preprocess)[0]
-        peaks_map, heat_up, paf_up = postprocess(
-            net_out, up_h, up_w, self.decode_params)
-        arrays = self._decode_escalating(
-            lambda p: decode_maps(peaks_map, paf_up, p))
-        self.heatMat = heat_up.cpu().numpy()
-        self.pafMat = paf_up.cpu().numpy()
-        logger.debug("inference in %.4f s", time.time() - t)
-        return self._humans(arrays)
+        with span("api.inference"):
+            net_out = self._forward(npimg[None], net_h, net_w,
+                                    self.device_preprocess)[0]
+            peaks_map, heat_up, paf_up = postprocess(
+                net_out, up_h, up_w, self.decode_params)
+            arrays = self._decode_escalating(
+                lambda p: decode_maps(peaks_map, paf_up, p))
+            with span("api.maps"):
+                self.heatMat = heat_up.cpu().numpy()
+                self.pafMat = paf_up.cpu().numpy()
+            with span("api.humans"):
+                return self._humans(arrays)
 
     def inference_batch(self, npimgs: Sequence[np.ndarray],
                         upsample_size: float = 1.0) -> List[List[Human]]:
@@ -307,17 +314,19 @@ class TfPoseEstimator:
         w, h = self.target_size
         up_h = int(h / 8 * upsample_size)
         up_w = int(w / 8 * upsample_size)
-        if all(im.shape[:2] == (h, w) for im in npimgs):
-            net_out = self._forward(np.stack(npimgs), h, w)
-        else:  # images to resize: forward one by one
-            net_out = torch.cat([self._forward(im[None], h, w)
-                                 for im in npimgs])
-        # on saturation the whole batch is decoded again: below-cap images
-        # decode identically at larger K
-        arrays = self._decode_escalating(
-            lambda p: decode_batch(net_out, up_h, up_w, p))
-        return [self._humans(Assembled(*(a[i] for a in arrays)))
-                for i in range(len(npimgs))]
+        with span("api.inference_batch"):
+            if all(im.shape[:2] == (h, w) for im in npimgs):
+                net_out = self._forward(np.stack(npimgs), h, w)
+            else:  # images to resize: forward one by one
+                net_out = torch.cat([self._forward(im[None], h, w)
+                                     for im in npimgs])
+            # on saturation the whole batch is decoded again: below-cap
+            # images decode identically at larger K
+            arrays = self._decode_escalating(
+                lambda p: decode_batch(net_out, up_h, up_w, p))
+            with span("api.humans"):
+                return [self._humans(Assembled(*(a[i] for a in arrays)))
+                        for i in range(len(npimgs))]
 
     def inference_windowed(self, npimg: np.ndarray,
                            upsample_size: float = 4.0,

@@ -49,6 +49,7 @@ from tfpose_tpu_torch.parallel.mesh import (
     sharded,
 )
 from tfpose_tpu_torch.pipeline.preprocess import normalize, resize_u8
+from tfpose_tpu_torch.utils.profiling import span
 
 logger = logging.getLogger("tfpose_tpu_torch.sweep")
 
@@ -114,7 +115,8 @@ class BatchedEvaluator:
         mesh = self.mesh
         n, h, w = x.shape[:3]
         spatial = self.spatial and mesh.n_spatial > 1
-        with sharded(mesh, image_hw=(h, w) if spatial else None):
+        with span("model.forward"), sharded(
+                mesh, image_hw=(h, w) if spatial else None):
             maps = run_backbone(self.net, normalize(shard_batch(
                 mesh, x, spatial_axis=1 if spatial else None)))
         if spatial:
@@ -129,32 +131,38 @@ class BatchedEvaluator:
     def forward_decode(self, x: torch.Tensor) -> Assembled:
         """(B, H, W, 3) uint8 at the network size, on the device -> the
         backbone and the padded decode, on the device (one device)."""
-        return decode_batch(run_backbone(self.net, normalize(x)),
-                            *self.up, self.decode_params)
+        with span("model.forward"):
+            maps = run_backbone(self.net, normalize(x))
+        return decode_batch(maps, *self.up, self.decode_params)
 
     def run_batch(self, imgs: np.ndarray) -> List[List]:
         """(B, H, W, 3) uint8 at the network size -> list of per-image
         Human lists (on a mesh, every rank is given the same batch and
         returns the whole list)."""
-        x = torch.as_tensor(np.ascontiguousarray(imgs), device=self.device)
-        if self.mesh is None:
-            out = self.forward_decode(x)
-        else:
-            out = self._decode_sharded(x)
-        arrays = Assembled(*(t.cpu().numpy() for t in out))
-        self.last_peak_saturated = arrays.peak_saturated
-        if arrays.peak_saturated.any() and not self._warned_saturation:
-            logger.warning(
-                "peak cap (max_peaks=%d) saturated — crowded batch, "
-                "low-score peaks may have been dropped",
-                self.decode_params.max_peaks)
-            self._warned_saturation = True
-        return [PoseArrays(
-            coords=arrays.coords[i], scores=arrays.part_scores[i],
-            part_valid=arrays.part_valid[i],
-            human_scores=arrays.human_scores[i],
-            human_valid=arrays.human_valid[i]).to_humans()
-            for i in range(imgs.shape[0])]
+        with span("api.run_batch"):
+            with span("model.upload"):
+                x = torch.as_tensor(np.ascontiguousarray(imgs),
+                                    device=self.device)
+            if self.mesh is None:
+                out = self.forward_decode(x)
+            else:
+                out = self._decode_sharded(x)
+            with span("api.fetch"):
+                arrays = Assembled(*(t.cpu().numpy() for t in out))
+            self.last_peak_saturated = arrays.peak_saturated
+            if arrays.peak_saturated.any() and not self._warned_saturation:
+                logger.warning(
+                    "peak cap (max_peaks=%d) saturated — crowded batch, "
+                    "low-score peaks may have been dropped",
+                    self.decode_params.max_peaks)
+                self._warned_saturation = True
+            with span("api.humans"):
+                return [PoseArrays(
+                    coords=arrays.coords[i], scores=arrays.part_scores[i],
+                    part_valid=arrays.part_valid[i],
+                    human_scores=arrays.human_scores[i],
+                    human_valid=arrays.human_valid[i]).to_humans()
+                    for i in range(imgs.shape[0])]
 
     def evaluate(self, images: Iterable[Tuple[int, np.ndarray,
                                               Tuple[int, int]]]

@@ -40,6 +40,7 @@ from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     smooth_nms_topk,
     smooth_nms_topk_raw,
 )
+from tfpose_tpu_torch.utils.profiling import span
 
 
 def _normalise_coords(out: Assembled, w: int, h: int) -> Assembled:
@@ -55,10 +56,14 @@ def decode_maps(peaks_map: torch.Tensor, paf_up: torch.Tensor,
     (H, W, 38). Coordinates are normalised to [0, 1] by the heatmap size,
     matching reference ``PoseEstimator.estimate_paf``."""
     h, w, _ = peaks_map.shape
-    pk = nms.top_peaks(peaks_map, params.max_peaks, params.thresh_heat)
-    cands = paf.score_candidates(pk, paf_up, params)
-    conns = paf.greedy_connections(cands, params)
-    return _normalise_coords(assemble_dense(pk, conns, params), w, h)
+    with span("decode.peaks"):
+        pk = nms.top_peaks(peaks_map, params.max_peaks, params.thresh_heat)
+    with span("decode.candidates"):
+        cands = paf.score_candidates(pk, paf_up, params)
+    with span("decode.greedy"):
+        conns = paf.greedy_connections(cands, params)
+    with span("decode.assemble"):
+        return _normalise_coords(assemble_dense(pk, conns, params), w, h)
 
 
 def postprocess(net_out: torch.Tensor, up_h: int, up_w: int,
@@ -67,11 +72,14 @@ def postprocess(net_out: torch.Tensor, up_h: int, up_w: int,
     """Reference post-graph on a (H/8, W/8, 57) network output: split ->
     area-upsample -> Gaussian smooth -> NMS. Returns (peaks_map, heat_up,
     paf_up), all (up_h, up_w, C) fp32."""
-    net_out = net_out.float()
-    heat_up = resize.resize_area(net_out[..., :NUM_HEATMAP_CH], up_h, up_w)
-    paf_up = resize.resize_area(net_out[..., NUM_HEATMAP_CH:], up_h, up_w)
-    peaks_map = smooth_nms(heat_up.contiguous(), params.smooth_kernel_size,
-                           params.smooth_sigma)
+    with span("decode.peaks"):
+        net_out = net_out.float()
+        heat_up = resize.resize_area(net_out[..., :NUM_HEATMAP_CH], up_h,
+                                     up_w)
+        paf_up = resize.resize_area(net_out[..., NUM_HEATMAP_CH:], up_h,
+                                    up_w)
+        peaks_map = smooth_nms(heat_up.contiguous(),
+                               params.smooth_kernel_size, params.smooth_sigma)
     return peaks_map, heat_up, paf_up
 
 
@@ -86,32 +94,40 @@ def decode_batch(net_out: torch.Tensor, up_h: int, up_w: int,
     """Decode (N, H/8, W/8, 57) network outputs; results have a leading
     N. The N*18 heat planes go through one top-K kernel call and the
     N*19 pair planes through one PAF scoring call."""
-    net_out = net_out.float()
-    b, h8, w8 = net_out.shape[:3]
-    heat, pafm = net_out[..., :NUM_HEATMAP_CH], net_out[..., NUM_HEATMAP_CH:]
-    args = (params.max_peaks, params.thresh_heat, params.smooth_kernel_size,
-            params.smooth_sigma)
-    if can_use_phase_kernel(h8, w8, up_h, up_w, params.smooth_kernel_size):
-        hb = heat[..., :NUM_PARTS].permute(1, 2, 0, 3).reshape(h8, w8, -1)
-        s, i = smooth_nms_topk_raw(hb, up_h // h8, up_w // w8, *args)
-    else:
-        # plane b*18 + p of the upsampled heat, held channel-first: the
-        # (up_h, up_w, B*18) view reaches the kernel without a copy
-        heat_up = resize.resize_area(heat, up_h, up_w)[..., :NUM_PARTS]
-        planes = heat_up.permute(0, 3, 1, 2).reshape(-1, up_h, up_w)
-        s, i = smooth_nms_topk(planes.permute(1, 2, 0), *args)
-    scores = s.reshape(b, NUM_PARTS, -1)
-    idx = i.reshape(b, NUM_PARTS, -1).clamp(min=0)
-    pk = nms.Peaks(x=idx % up_w, y=idx // up_w, score=scores,
-                   valid=scores > params.thresh_heat)
-    if _integer_upsample(h8, w8, up_h, up_w):
-        cands = score_candidates_raw(pk, pafm, up_h, up_w, params,
-                                     prefix_valid=True)
-    else:
-        cands = paf.score_candidates_batch(
-            pk, resize.resize_area(pafm, up_h, up_w), params)
-    conns = paf.greedy_connections(cands, params)
-    return _normalise_coords(assemble_dense(pk, conns, params), up_w, up_h)
+    with span("decode.peaks"):
+        net_out = net_out.float()
+        b, h8, w8 = net_out.shape[:3]
+        heat = net_out[..., :NUM_HEATMAP_CH]
+        pafm = net_out[..., NUM_HEATMAP_CH:]
+        args = (params.max_peaks, params.thresh_heat,
+                params.smooth_kernel_size, params.smooth_sigma)
+        if can_use_phase_kernel(h8, w8, up_h, up_w,
+                                params.smooth_kernel_size):
+            hb = heat[..., :NUM_PARTS].permute(1, 2, 0, 3).reshape(
+                h8, w8, -1)
+            s, i = smooth_nms_topk_raw(hb, up_h // h8, up_w // w8, *args)
+        else:
+            # plane b*18 + p of the upsampled heat, held channel-first:
+            # the (up_h, up_w, B*18) view reaches the kernel without a copy
+            heat_up = resize.resize_area(heat, up_h, up_w)[..., :NUM_PARTS]
+            planes = heat_up.permute(0, 3, 1, 2).reshape(-1, up_h, up_w)
+            s, i = smooth_nms_topk(planes.permute(1, 2, 0), *args)
+        scores = s.reshape(b, NUM_PARTS, -1)
+        idx = i.reshape(b, NUM_PARTS, -1).clamp(min=0)
+        pk = nms.Peaks(x=idx % up_w, y=idx // up_w, score=scores,
+                       valid=scores > params.thresh_heat)
+    with span("decode.candidates"):
+        if _integer_upsample(h8, w8, up_h, up_w):
+            cands = score_candidates_raw(pk, pafm, up_h, up_w, params,
+                                         prefix_valid=True)
+        else:
+            cands = paf.score_candidates_batch(
+                pk, resize.resize_area(pafm, up_h, up_w), params)
+    with span("decode.greedy"):
+        conns = paf.greedy_connections(cands, params)
+    with span("decode.assemble"):
+        return _normalise_coords(assemble_dense(pk, conns, params), up_w,
+                                 up_h)
 
 
 def decode(net_out: torch.Tensor, up_h: int, up_w: int,

@@ -54,6 +54,7 @@ from tfpose_tpu_torch.parallel.halo import (
     row_bounds,
     use,
 )
+from tfpose_tpu_torch.utils.profiling import span
 
 # Batch-dict keys with NHWC spatial layout; everything else (e.g.
 # 'joints' (N, people, 18, 2)) is data-sharded only even when a
@@ -248,11 +249,12 @@ def gather_blocks(local: torch.Tensor, bounds: Sequence[int], index: int,
     shape = list(local.shape)
     shape[dim] = bounds[-1]
     dtype = torch.uint8 if local.dtype == torch.bool else local.dtype
-    buf = torch.zeros(shape, dtype=dtype, device=local.device)
-    buf.narrow(dim, bounds[index], bounds[index + 1] - bounds[index]).copy_(
-        local)
-    dist.all_reduce(buf, group=group)
-    return buf.bool() if local.dtype == torch.bool else buf
+    with span("mesh.gather"):
+        buf = torch.zeros(shape, dtype=dtype, device=local.device)
+        buf.narrow(dim, bounds[index],
+                   bounds[index + 1] - bounds[index]).copy_(local)
+        dist.all_reduce(buf, group=group)
+        return buf.bool() if local.dtype == torch.bool else buf
 
 
 def broadcast_batch(mesh: Mesh, batch: Optional[Dict[str, Any]]

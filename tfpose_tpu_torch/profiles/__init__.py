@@ -1,14 +1,15 @@
 """Device profiles on the card, the counterparts of the repo's
 ``scripts/profile_stages.py``, ``profile_forward.py`` and
-``profile_cmu_ops.py``: ``tfpose-torch-profile {stages,forward,ops}``.
-Each submodule's ``main(argv)`` takes its own flags."""
+``profile_cmu_ops.py``: ``tfpose-torch-profile {stages,forward,ops}``,
+and ``spans``, the card's idle time by the program's spans. Each
+submodule's ``main(argv)`` takes its own flags."""
 
 from __future__ import annotations
 
 import importlib
 import sys
 
-COMMANDS = ("stages", "forward", "ops")
+COMMANDS = ("stages", "forward", "ops", "spans")
 
 
 def main(argv=None):
