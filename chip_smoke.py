@@ -20,7 +20,11 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      a pair without valid peaks and without the row skip); and K1-K3 at
      the new backbones' grids on rendered maps: CMU's 46x82 (B = 1, 16;
      K2 at 184x328x19) and mobilenet_v2_small's 46x46 (B = 1, 8; K2 at
-     184x184x19);
+     184x184x19); K5, the assembly, every field bit for bit on what
+     ``decode_batch`` hands it: rendered 46x54 scenes at B = 1 and 16,
+     CMU's B = 16 with no peaks, a crowded 90x160 scene at K = 32
+     (saturated) and K = 128, and a constructed case on which the
+     redundant-pair walk extends, fuses and attaches;
   3. main path: the mobilenet_thin estimator with the committed
      ``thin368_coco`` weights and 432x368 input, path by path, each with
      the launch counts set to 0 just before it and read just after:
@@ -50,7 +54,8 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      ``torch.profiler``): each kernel (the two top-K kernels at both
      shapes of their paths: B = 1 and 8 at 4x; 360x640x18 and
      115x135x144; the candidate scorer at B = 1 and 8 and on the 90x160
-     grid), ``inference``
+     grid; the assembly at thin B = 16 and 1, CMU B = 16 without peaks
+     and the crowded scene at K = 128), ``inference``
      latency, ``inference_batch`` images per second at B = 1, 8, 16 and
      at upsample 2.5, and ``inference_windowed`` / ``inference_multiscale``
      latency on 1280x720 frames; ``torch.profiler`` breakdowns; and for
@@ -328,6 +333,118 @@ def k4_compare(got, want):
     return d
 
 
+def k5_compare(got, want, what: str) -> None:
+    """K5 against its plain version: every field of ``Assembled`` bit for
+    bit (fixed-order or exact arithmetic at every step)."""
+    import torch
+
+    for name in got._fields:
+        g, w = getattr(got, name), getattr(want, name)
+        check(g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w),
+              f"K5 {name} differs from its plain version on {what}: "
+              f"{tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}"
+              + (f", {int((g != w).sum())} values" if g.shape == w.shape
+                 else ""))
+
+
+def assembly_inputs(net_b, up_h, up_w, params):
+    """(peaks, connections) that ``decode_batch`` hands the assembly for
+    (B, h8, w8, 57) net outputs, on their device."""
+    from tfpose_tpu_torch.ops import assemble, decode
+
+    seen = []
+
+    def keep(pk, conns, p, size=None):
+        seen.append((pk, conns))
+        return assemble.assemble_dense_plain(pk, conns, p)
+
+    decode.assemble_dense = keep
+    try:
+        decode.decode_batch(net_b, up_h, up_w, params)
+    finally:
+        decode.assemble_dense = assemble.assemble_dense
+    return seen[0]
+
+
+# the walk case's parts and pairs per image: image 0 on the right side
+# (the redundant pair 17, shoulder 2 -> ear 16), image 1 on the left (18)
+_WALK_SIDES = (
+    dict(sh=2, el=3, wr=4, eye=14, ear=16, pairs=dict(
+        nk_sh=0, nk_other=1, sh_el=2, el_wr=3, nose_eye=13, eye_ear=14,
+        sh_ear=17)),
+    dict(sh=5, el=6, wr=7, eye=15, ear=17, pairs=dict(
+        nk_sh=1, nk_other=0, sh_el=4, el_wr=5, nose_eye=15, eye_ear=16,
+        sh_ear=18)))
+
+
+def walk_case(k: int = 16):
+    """Peaks (2, 18, k) and connections (2, 19, k) on which the
+    redundant-pair walk takes each branch once per image, in slot order:
+    slot 0 extends a row with an ear no row holds, slot 1 fuses a row
+    with a part-disjoint row that holds the ear, slot 2 attaches an ear
+    to the earlier-created of two rows that share the neck. Part p's slot
+    s lies at x = 8p + s, y = 4s + p + 1 with score 0.9 (slots 0-3 valid);
+    every connection scores 0.8. See :func:`walk_branches`."""
+    import torch
+
+    from tfpose_tpu_torch.ops.nms import Peaks
+    from tfpose_tpu_torch.ops.paf import Connections
+
+    parts = torch.arange(18, dtype=torch.int32)[:, None]
+    slots = torch.arange(k, dtype=torch.int32)[None, :]
+    valid = (slots < 4).expand(18, k)
+    pk = Peaks(x=(8 * parts + slots).expand(2, 18, k).contiguous(),
+               y=(4 * slots + parts + 1).expand(2, 18, k).contiguous(),
+               score=torch.where(valid, 0.9, 0.0).expand(2, 18, k)
+               .contiguous(),
+               valid=valid.expand(2, 18, k).contiguous())
+    a_slot = torch.full((2, 19, k), -1, dtype=torch.int32)
+    b_slot = a_slot.clone()
+    for img, side in enumerate(_WALK_SIDES):
+        p = side["pairs"]
+        for pair, conns in (
+                (p["nk_sh"], [(0, 0), (1, 1), (2, 2)]),
+                (p["nk_other"], [(0, 0)]),
+                (p["sh_el"], [(0, 0), (1, 1), (2, 2)]),
+                (p["el_wr"], [(0, 0), (1, 1), (2, 2)]),
+                (12, [(3, 3)]),                        # neck -> nose
+                (p["nose_eye"], [(1, 1), (3, 3)]),
+                (p["eye_ear"], [(1, 1), (3, 3)]),
+                (p["sh_ear"], [(0, 0), (1, 1), (2, 3)])):
+            for t, (a, b) in enumerate(conns):
+                a_slot[img, pair, t], b_slot[img, pair, t] = a, b
+    c_valid = a_slot >= 0
+    return pk, Connections(a_slot=a_slot, b_slot=b_slot,
+                           score=torch.where(c_valid, 0.8, 0.0),
+                           valid=c_valid)
+
+
+def walk_branches(out, img: int):
+    """The branches of the redundant-pair walk that the assembly ``out``
+    of :func:`walk_case` shows in image ``img`` (coordinates in heatmap
+    pixels): "extend" (the slot-0 shoulder's human has the slot-0 ear),
+    "fuse" (one human has the slot-1 nose and the slot-1 wrist),
+    "attach" (two humans have the slot-3 ear)."""
+    side = _WALK_SIDES[img]
+    coords = out.coords[img].cpu()
+    valid = out.part_valid[img].cpu()
+    human = out.human_valid[img].cpu()
+
+    def at(h, part, slot):
+        return bool(valid[h, part]) and coords[h, part].tolist() == [
+            8 * part + slot, 4 * slot + part + 1]
+
+    humans = [h for h in range(len(human)) if human[h]]
+    found = set()
+    if any(at(h, side["sh"], 0) and at(h, side["ear"], 0) for h in humans):
+        found.add("extend")
+    if any(at(h, 0, 1) and at(h, side["wr"], 1) for h in humans):
+        found.add("fuse")
+    if sum(at(h, side["ear"], 3) for h in humans) == 2:
+        found.add("attach")
+    return found
+
+
 def k1_phase_reference(heat8, fy, fx, k_top, thresh, kernlen=25, nsig=3.0):
     """The raw-grid top-K's own arithmetic in PyTorch, one op at a time:
     the vertical phase sums V, then the smoothed values S, each summed in
@@ -503,7 +620,8 @@ def same_humans(got, want, what: str) -> None:
 # launch counts before its path and returns them with its results.
 
 def kernel_wrappers():
-    """The four kernels' wrappers, by name; each counts its launches."""
+    """The five kernels' wrappers, by name; each counts its launches."""
+    from tfpose_tpu_torch.ops.assemble import assemble_dense
     from tfpose_tpu_torch.ops.kernels.paf_score import score_candidates_raw
     from tfpose_tpu_torch.ops.kernels.smooth_nms import (
         smooth_nms, smooth_nms_topk, smooth_nms_topk_raw)
@@ -511,7 +629,8 @@ def kernel_wrappers():
     return {"smooth_nms_topk_raw": smooth_nms_topk_raw,
             "smooth_nms": smooth_nms,
             "score_candidates_raw": score_candidates_raw,
-            "smooth_nms_topk": smooth_nms_topk}
+            "smooth_nms_topk": smooth_nms_topk,
+            "assemble_dense": assemble_dense}
 
 
 def counted(run):
@@ -740,10 +859,14 @@ def main() -> int:
     from tfpose_tpu_torch.estimator import TfPoseEstimator
     from tfpose_tpu_torch.evaluation.coco_eval import synthetic_e2e
     from tfpose_tpu_torch.models import get_checkpoint_path
+    from tfpose_tpu_torch.ops.assemble import (
+        assemble_dense, assemble_dense_plain, normalise_coords)
     from tfpose_tpu_torch.ops.decode import (
         decode_batch, decode_maps, postprocess)
     from tfpose_tpu_torch.ops import resize
     from tfpose_tpu_torch.ops.kernels import build
+    from tfpose_tpu_torch.ops.nms import Peaks
+    from tfpose_tpu_torch.ops.paf import Connections
     from tfpose_tpu_torch.core.topology import pairs_array
     from tfpose_tpu_torch.ops.kernels.paf_score import (
         candidate_geometry, score_candidates_raw, score_candidates_raw_plain)
@@ -761,7 +884,8 @@ def main() -> int:
     wrappers = {"smooth_nms_topk_raw": smooth_nms_topk_raw,
                 "smooth_nms": smooth_nms,
                 "score_candidates_raw": score_candidates_raw,
-                "smooth_nms_topk": smooth_nms_topk}
+                "smooth_nms_topk": smooth_nms_topk,
+                "assemble_dense": assemble_dense}
     err = {name: 0.0 for name in wrappers}
     params = DecodeParams()
 
@@ -778,7 +902,7 @@ def main() -> int:
         log(f"built {len(build.build_log)} kernel libraries in {secs:.2f} s "
             f"into {build.build_dir()}, one nvcc each, started together")
         for stem in ("smooth_nms_topk_raw", "smooth_nms", "paf_score",
-                     "smooth_nms_topk"):
+                     "smooth_nms_topk", "assemble"):
             t = build.build_seconds.get(stem)
             log(f"  build {stem}: " + (f"{t:.2f} s" if t is not None else
                                        "found built from these sources"))
@@ -940,6 +1064,49 @@ def main() -> int:
                        f"{tuple(heat_up.shape)}")
             log(f"K2 smooth_nms {tuple(heat_up.shape)}: bit for bit, "
                 f"{int((got > 0.05).sum())} values above 0.05 kept")
+
+        # K5 on what decode_batch hands the assembly: rendered 46x54
+        # scenes at B = 1 and 16 (K = 32), CMU's B = 16 with no peaks
+        # (zero 46x82 maps), a crowded 90x160 scene that saturates K = 32
+        # and fills max_humans, the same at K = 128, and the walk case
+        def k5_pair(pk, conns, p, what, size=None):
+            n0 = assemble_dense.launches
+            got = assemble_dense(pk, conns, p, size)
+            check(assemble_dense.launches == n0 + 1,
+                  f"K5 launched {assemble_dense.launches - n0} times")
+            want = assemble_dense_plain(pk, conns, p)
+            if size is not None:
+                want = normalise_coords(want, *size)
+            k5_compare(got, want, what)
+            log(f"K5 assemble_dense {what}: every field bit for bit, "
+                f"{int(got.human_valid.sum())} humans, "
+                f"{int(got.peak_saturated.sum())} parts saturated")
+            return got
+
+        nets16 = torch.cat([nets, nets])
+        for b in (1, 16):
+            k5_pair(*assembly_inputs(nets16[:b], 184, 216, params), params,
+                    f"B={b} (46, 54) K=32", (216, 184))
+        zeros82 = torch.zeros((16, 46, 82, 57), device=dev)
+        got = k5_pair(*assembly_inputs(zeros82, 184, 328, params), params,
+                      "no peaks B=16 (46, 82) K=32", (328, 184))
+        check(not bool(got.human_valid.any()), "K5 humans without peaks")
+        crowd = torch.from_numpy(scene_nets(32, [80], 90, 160)).to(dev)
+        for p in (params, params.escalated()):
+            got = k5_pair(*assembly_inputs(crowd, 360, 640, p), p,
+                          f"crowded (90, 160) K={p.max_peaks} "
+                          f"max_humans={p.max_humans}", (640, 360))
+            check(int(got.human_valid.sum()) == p.max_humans,
+                  "K5: the crowd does not fill max_humans")
+        wpk, wconns = walk_case()
+        wp = DecodeParams(max_peaks=16, max_humans=16)
+        got = k5_pair(Peaks(*(t.to(dev) for t in wpk)),
+                      Connections(*(t.to(dev) for t in wconns)), wp,
+                      "walk case K=16")
+        for img in (0, 1):
+            check(walk_branches(got, img) == {"extend", "fuse", "attach"},
+                  f"K5 walk case image {img}: {walk_branches(got, img)}")
+        log("K5 walk case: extend, fuse and attach on both ear pairs")
 
     with phase("3 main path"):
         imgs = render_frames(np.random.default_rng(7), 8, 368, 432)
@@ -1223,6 +1390,35 @@ def main() -> int:
                  k3_cost(pkg, pafg, up_h, up_w)),
             ]
 
+        def k5_cost(pk, p):
+            """Bytes: the peaks and connections (13 B a slot) read, the
+            outputs written. No operation count: the redundant-pair walk's
+            dependent chain, not bytes or operations, bounds it."""
+            b, parts, k = pk.x.shape
+            return (b * (parts + len(pairs)) * k * 13
+                    + b * p.max_humans * (parts * 13 + 5) + b * parts, 0)
+
+        k5_in = {
+            "thin B=16 (46, 54) K=32": (assembly_inputs(
+                torch.cat([nets, nets]), 184, 216, params), params,
+                (216, 184)),
+            "thin B=1 (46, 54) K=32": (assembly_inputs(
+                nets[:1], 184, 216, params), params, (216, 184)),
+            "cmu B=16 no peaks (46, 82) K=32": (assembly_inputs(
+                torch.zeros((16, 46, 82, 57), device=dev), 184, 328,
+                params), params, (328, 184)),
+            "crowded B=1 (90, 160) K=128": (assembly_inputs(
+                crowd, 360, 640, params.escalated()), params.escalated(),
+                (640, 360)),
+        }
+        k5_cases = [
+            ("assemble_dense", what,
+             lambda a=args: assemble_dense(*a[0], a[1], a[2]),
+             lambda a=args: normalise_coords(
+                 assemble_dense_plain(*a[0], a[1]), *a[2]),
+             k5_cost(args[0][0], args[1]))
+            for what, args in k5_in.items()]
+
         # (kernel, shape, kernel call, plain call, (bytes, ops)); a
         # kernel's first case is the one its JSON entry reports
         cases = [
@@ -1255,7 +1451,7 @@ def main() -> int:
             ("smooth_nms_topk", f"{tuple(x25.shape)} K=32",
              lambda: smooth_nms_topk(x25, 32, 0.05),
              lambda: smooth_nms_topk_plain(x25, 32, 0.05), k4_cost(x25)),
-        ] + new_cases
+        ] + new_cases + k5_cases
         sources = {
             "smooth_nms_topk_raw": ("tfpose_tpu_torch/csrc/smooth_nms_topk_raw.cu",
                                     "tfpose_tpu/ops/pallas/smooth_nms.py:371"),
@@ -1265,11 +1461,15 @@ def main() -> int:
                                      "tfpose_tpu/ops/pallas/paf_score.py:104"),
             "smooth_nms_topk": ("tfpose_tpu_torch/csrc/smooth_nms_topk.cu",
                                 "tfpose_tpu/ops/pallas/smooth_nms.py:180"),
+            "assemble_dense": ("tfpose_tpu_torch/csrc/assemble.cu",
+                               "none (tfpose_tpu/ops/assemble.py:"
+                               "assemble_dense is jnp code)"),
         }
         ours = {"smooth_nms_topk_raw": ("phase_peaks_kernel", "select_kernel"),
                 "smooth_nms": ("smooth_nms_kernel",),
                 "score_candidates_raw": ("score_candidates_kernel",),
-                "smooth_nms_topk": ("blur_peaks_kernel", "select_kernel")}
+                "smooth_nms_topk": ("blur_peaks_kernel", "select_kernel"),
+                "assemble_dense": ("assemble_kernel",)}
 
         def device_ms(name, rows):
             """Device ms per launch of ``name``'s own kernels in a
@@ -2224,14 +2424,16 @@ def main() -> int:
             n = path_launches[path]
             if max_batch == 1:
                 check(n == {"smooth_nms_topk_raw": 0, "smooth_nms": 8,
-                            "score_candidates_raw": 0, "smooth_nms_topk": 0},
-                      f"{path}: launches {n}, want K2 8 only")
+                            "score_candidates_raw": 0, "smooth_nms_topk": 0,
+                            "assemble_dense": 8},
+                      f"{path}: launches {n}, want K2 and K5 8 each only")
             else:
                 check(flushes >= 1 and n == {
                     "smooth_nms_topk_raw": flushes, "smooth_nms": 0,
-                    "score_candidates_raw": flushes, "smooth_nms_topk": 0},
-                    f"{path}: launches {n}, want K1 and K3 once per flush "
-                    f"({flushes})")
+                    "score_candidates_raw": flushes, "smooth_nms_topk": 0,
+                    "assemble_dense": flushes},
+                    f"{path}: launches {n}, want K1, K3 and K5 once per "
+                    f"flush ({flushes})")
             for i, ((humans, img), w) in enumerate(zip(got, want)):
                 same_persons(humans_to_msg(humans, 640, 480), w,
                              f"{path} frame {i}")

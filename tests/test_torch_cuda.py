@@ -15,18 +15,22 @@ import torch
 
 from chip_smoke import (
     CHECKPOINT,
+    assembly_inputs,
     heat8_of,
     humans_key,
     k1_phase_reference,
     k2_compare,
     k3_compare,
     k4_compare,
+    k5_compare,
     peaks_of,
     planes_up,
     render_frames,
     same_persons,
     scene_nets,
     video_serial,
+    walk_branches,
+    walk_case,
 )
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.core.topology import pairs_array
@@ -34,10 +38,17 @@ from tfpose_tpu_torch.estimator import TfPoseEstimator
 from tfpose_tpu_torch.models import MODEL_NAMES, get_network
 from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.ops import resize
+from tfpose_tpu_torch.ops.assemble import (
+    assemble_dense,
+    assemble_dense_plain,
+    normalise_coords,
+)
 from tfpose_tpu_torch.ops.kernels.paf_score import (
     score_candidates_raw,
     score_candidates_raw_plain,
 )
+from tfpose_tpu_torch.ops.nms import Peaks
+from tfpose_tpu_torch.ops.paf import Connections
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     smooth_nms,
     smooth_nms_plain,
@@ -242,6 +253,75 @@ def test_paf_sample_kernel_at_the_new_grids(grid_nets, grid):
         got = score_candidates_raw(*args)
         k3_compare(got, score_candidates_raw_plain(*args), f"{grid} B={b}")
     assert bool(got.ok.any())
+
+
+# ---- K5, the assembly, on what decode_batch hands it: rendered 90x160
+# scenes of 0, 3, 9 and 80 people (80 saturate K=32 and fill
+# max_humans) and maps with no peaks, at 360x640
+
+_ASSEMBLY_PEOPLE = [0, 3, 9, 80]
+
+
+@pytest.fixture(scope="module")
+def assembly_nets(nets):
+    return torch.from_numpy(scene_nets(17, _ASSEMBLY_PEOPLE * 4, 90, 160)).to(
+        nets.device)
+
+
+def _k5_pair(pk, conns, params, what, size=None):
+    """K5 against its plain version on the card, every field bit for bit;
+    each call launches the kernel once."""
+    n0 = assemble_dense.launches
+    got = assemble_dense(pk, conns, params, size)
+    assert assemble_dense.launches == n0 + 1
+    want = assemble_dense_plain(pk, conns, params)
+    if size is not None:
+        want = normalise_coords(want, *size)
+    k5_compare(got, want, what)
+    return got
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("k, max_h", [(16, 16), (32, 32), (128, 64)])
+def test_assemble_kernel(assembly_nets, b, k, max_h):
+    """At B=1 each scene alone, at B=16 the four scenes four times; pixel
+    and normalised coordinates."""
+    params = DecodeParams(max_peaks=k, max_humans=max_h)
+    batches = ([assembly_nets[i:i + 1] for i in range(4)] if b == 1
+               else [assembly_nets])
+    humans = []
+    for net in batches:
+        pk, conns = assembly_inputs(net, 360, 640, params)
+        for size in (None, (640, 360)):
+            got = _k5_pair(pk, conns, params, f"B={b} K={k} {size}", size)
+        humans += got.human_valid.sum(1).tolist()
+    assert humans[0] == 0 and min(humans[1:4]) > 0
+    # the crowd fills max_humans; at K=32 it saturates the peak cap
+    assert humans[3] == max_h
+    if k == 32:
+        assert bool(got.peak_saturated[3 if b == 16 else 0].any())
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_assemble_kernel_without_peaks(nets, b):
+    """CMU's case on seeded weights: maps that hold no peak."""
+    params = DecodeParams()
+    zeros = torch.zeros((b, 46, 82, 57), device=nets.device)
+    pk, conns = assembly_inputs(zeros, 184, 328, params)
+    got = _k5_pair(pk, conns, params, f"no peaks B={b}", (328, 184))
+    assert not bool(got.human_valid.any()) and not bool(pk.valid.any())
+
+
+def test_assemble_kernel_walks_every_branch(nets):
+    """The constructed case: on both ear pairs the redundant-pair walk
+    extends, fuses and attaches once, and the kernel shows each."""
+    params = DecodeParams(max_peaks=16, max_humans=16)
+    pk, conns = walk_case()
+    got = _k5_pair(Peaks(*(t.to(nets.device) for t in pk)),
+                   Connections(*(t.to(nets.device) for t in conns)), params,
+                   "walk case")
+    for img in (0, 1):
+        assert walk_branches(got, img) == {"extend", "fuse", "attach"}
 
 
 # ---- the serving side and the bf16 backbone on the card

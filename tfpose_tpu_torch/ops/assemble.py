@@ -26,20 +26,41 @@ and gather ops PyTorch has on both devices. A floating-point
 ``scatter_add`` on the card sums with atomics in an order that changes
 from run to run, so the per-component score sums go through
 :func:`segment_sum`, which is exact and so independent of that order.
+
+That composition, :func:`assemble_dense_plain`, is the plain version of
+the CUDA kernel ``csrc/assemble.cu`` (K5), which does every step for one
+image per block in shared memory: about 1,300 small ops and 10 host syncs
+a call at B=16 become one launch, bit for bit the same outputs. The
+wrapper :func:`assemble_dense` launches the kernel for CUDA tensors and
+runs the plain version for CPU tensors; ``assemble_dense.launches``
+counts launches. Given the heat map's ``size`` (w, h), it also
+normalises the coordinates to [0, 1] (the kernel multiplies by the same
+fp32 reciprocals).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.core.topology import NUM_PARTS, pairs_array
+from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.nms import Peaks
 from tfpose_tpu_torch.ops.paf import Connections
 
 _LABEL_ITERS = 10
+MAX_K = 128  # peaks per part the kernel takes (the escalated decode's K)
+
+_ptr = ctypes.c_void_p
+_int = ctypes.c_int
+# argument types of the kernel's C launch function, in order
+ASSEMBLE_ARGTYPES = ([_ptr] * 15 + [_int] * 7
+                     + [ctypes.c_float, _int, ctypes.c_float, ctypes.c_float,
+                        _ptr])
 
 
 class Assembled(NamedTuple):
@@ -80,14 +101,11 @@ def _pick(vals: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return vals[torch.arange(vals.shape[0], device=vals.device), index]
 
 
-def assemble_dense(peaks: Peaks, conns: Connections,
-                   params: DecodeParams) -> Assembled:
-    """Peaks (B, 18, K) + connections (B, 19, K) -> Assembled (B, ...);
-    unbatched (18, K) / (19, K) inputs give unbatched outputs."""
-    if peaks.x.dim() == 2:
-        out = assemble_dense(Peaks(*(t[None] for t in peaks)),
-                             Connections(*(t[None] for t in conns)), params)
-        return Assembled(*(t[0] for t in out))
+def assemble_dense_plain(peaks: Peaks, conns: Connections,
+                         params: DecodeParams) -> Assembled:
+    """The plain version of :func:`assemble_dense`: peaks (B, 18, K) +
+    connections (B, 19, K) -> Assembled (B, ...), coordinates in heatmap
+    pixels."""
     dev = peaks.x.device
     bsz, num_parts, k = peaks.x.shape
     assert num_parts == NUM_PARTS
@@ -287,3 +305,94 @@ def assemble_dense(peaks: Peaks, conns: Connections,
                      part_valid=p_valid[:, :max_h], human_scores=human_scores,
                      human_valid=human_valid,
                      peak_saturated=peaks.valid.all(-1))
+
+
+def normalise_coords(out: Assembled, w: int, h: int) -> Assembled:
+    """Coordinates >= 0 multiplied by the fp32 reciprocals of the heatmap
+    size (w, h); the -1 padding stays."""
+    scale = torch.tensor([1.0 / w, 1.0 / h], dtype=torch.float32,
+                         device=out.coords.device)
+    coords = torch.where(out.coords >= 0, out.coords * scale, out.coords)
+    return out._replace(coords=coords)
+
+
+@functools.lru_cache(maxsize=1)
+def _pair_table() -> torch.Tensor:
+    """(19, 2) int32 on the host: each pair's parts, the kernel's table."""
+    return torch.from_numpy(pairs_array()).int().contiguous()
+
+
+def _check(peaks: Peaks, conns: Connections) -> None:
+    x = peaks.x
+    if x.dim() != 3 or x.shape[1] != NUM_PARTS or not 1 <= x.shape[2] <= MAX_K:
+        raise ValueError(f"peaks: want (B, {NUM_PARTS}, K) with K in "
+                         f"1..{MAX_K}, got {tuple(x.shape)}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+    b, _, k = x.shape
+    n_pairs = len(pairs_array())
+    for name, t, dt, rows in (
+            ("peaks.x", x, torch.int32, NUM_PARTS),
+            ("peaks.y", peaks.y, torch.int32, NUM_PARTS),
+            ("peaks.score", peaks.score, torch.float32, NUM_PARTS),
+            ("peaks.valid", peaks.valid, torch.bool, NUM_PARTS),
+            ("conns.a_slot", conns.a_slot, torch.int32, n_pairs),
+            ("conns.b_slot", conns.b_slot, torch.int32, n_pairs),
+            ("conns.score", conns.score, torch.float32, n_pairs),
+            ("conns.valid", conns.valid, torch.bool, n_pairs)):
+        if (t.dtype != dt or tuple(t.shape) != (b, rows, k)
+                or t.device != x.device):
+            raise ValueError(f"{name}: want {(b, rows, k)} {dt} on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+
+
+def assemble_dense(peaks: Peaks, conns: Connections, params: DecodeParams,
+                   size: Optional[Tuple[int, int]] = None) -> Assembled:
+    """Peaks (B, 18, K) + connections (B, 19, K) -> Assembled (B, ...);
+    unbatched (18, K) / (19, K) inputs give unbatched outputs. Peaks are
+    int32 x, y, fp32 score, bool valid; connections int32 slots, fp32
+    score, bool valid; K in 1..128. With ``size`` (w, h) the coordinates
+    are normalised by it (:func:`normalise_coords`), else they are
+    heatmap pixels."""
+    if peaks.x.dim() == 2:
+        out = assemble_dense(Peaks(*(t[None] for t in peaks)),
+                             Connections(*(t[None] for t in conns)), params,
+                             size)
+        return Assembled(*(t[0] for t in out))
+    _check(peaks, conns)
+    if peaks.x.device.type == "cpu":
+        out = assemble_dense_plain(peaks, conns, params)
+        return out if size is None else normalise_coords(out, *size)
+    dev = peaks.x.device
+    b, parts, k = peaks.x.shape
+    max_h = params.max_humans
+    x, y, score, valid = (t.contiguous() for t in peaks)
+    a_slot, b_slot, c_score, c_valid = (t.contiguous() for t in conns)
+    table = _pair_table()
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = Assembled(
+        coords=torch.empty((b, max_h, parts, 2), **f32),
+        part_scores=torch.empty((b, max_h, parts), **f32),
+        part_valid=torch.empty((b, max_h, parts), dtype=torch.bool,
+                               device=dev),
+        human_scores=torch.empty((b, max_h), **f32),
+        human_valid=torch.empty((b, max_h), dtype=torch.bool, device=dev),
+        peak_saturated=torch.empty((b, parts), dtype=torch.bool, device=dev))
+    # ctypes rounds the reciprocals to fp32 as normalise_coords does
+    sx, sy = (0.0, 0.0) if size is None else (1.0 / size[0], 1.0 / size[1])
+    fn = build.launcher("assemble", "assemble_launch", ASSEMBLE_ARGTYPES)
+    status = fn(x.data_ptr(), y.data_ptr(), score.data_ptr(),
+                valid.data_ptr(), a_slot.data_ptr(), b_slot.data_ptr(),
+                c_score.data_ptr(), c_valid.data_ptr(),
+                *(t.data_ptr() for t in out), table.data_ptr(), b, parts,
+                table.shape[0], k, max_h, _LABEL_ITERS,
+                params.thresh_part_cnt, float(params.thresh_human_score),
+                int(size is not None), sx, sy,
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check("assemble", status, "assemble_dense")
+    assemble_dense.launches += 1
+    return out
+
+
+assemble_dense.launches = 0

@@ -26,7 +26,6 @@ from __future__ import annotations
 
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from tfpose_tpu_torch.core.config import DecodeParams
@@ -43,13 +42,6 @@ from tfpose_tpu_torch.ops.kernels.smooth_nms import (
 from tfpose_tpu_torch.utils.profiling import span
 
 
-def _normalise_coords(out: Assembled, w: int, h: int) -> Assembled:
-    scale = torch.tensor(np.asarray([1.0 / w, 1.0 / h], np.float32),
-                         device=out.coords.device)
-    coords = torch.where(out.coords >= 0, out.coords * scale, out.coords)
-    return out._replace(coords=coords)
-
-
 def decode_maps(peaks_map: torch.Tensor, paf_up: torch.Tensor,
                 params: DecodeParams) -> Assembled:
     """Decode from an NMS'd peaks plane (H, W, 19) + upsampled PAF map
@@ -63,7 +55,7 @@ def decode_maps(peaks_map: torch.Tensor, paf_up: torch.Tensor,
     with span("decode.greedy"):
         conns = paf.greedy_connections(cands, params)
     with span("decode.assemble"):
-        return _normalise_coords(assemble_dense(pk, conns, params), w, h)
+        return assemble_dense(pk, conns, params, (w, h))
 
 
 def postprocess(net_out: torch.Tensor, up_h: int, up_w: int,
@@ -126,8 +118,7 @@ def decode_batch(net_out: torch.Tensor, up_h: int, up_w: int,
     with span("decode.greedy"):
         conns = paf.greedy_connections(cands, params)
     with span("decode.assemble"):
-        return _normalise_coords(assemble_dense(pk, conns, params), up_w,
-                                 up_h)
+        return assemble_dense(pk, conns, params, (up_w, up_h))
 
 
 def decode(net_out: torch.Tensor, up_h: int, up_w: int,
