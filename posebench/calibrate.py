@@ -52,7 +52,8 @@ def control_items(cell, device):
         out = []
         for s in ids:
             humans = ref_decode.decode(maps[s], cell.up_h, cell.up_w,
-                                       round_to=torch.bfloat16)
+                                       round_to=torch.bfloat16,
+                                       skeleton=cell.skeleton)
             out.append((s, maps[s].cpu().numpy(), humans))
         return out
     from tfpose_tpu_torch.models.quantize import (

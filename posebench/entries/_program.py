@@ -31,7 +31,8 @@ def estimator(cell):
         device=cell.device, **cfg.get("program", {}))
     if path is None:
         weights.load_into(est.net, weights.seeded_tree(
-            cfg["model"], cell.seed, est.device))
+            cfg["model"], cell.seed, est.device, cell.root), cfg["model"],
+            cell.root)
     return est
 
 

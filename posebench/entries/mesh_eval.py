@@ -40,8 +40,8 @@ def _rank(workload: str, seed: int, seconds: float, trace: bool,
                           upsample=cfg["upsample"], mesh=mesh)
     path = cell.weights_path()
     if path is None:
-        weights.load_into(ev.net, weights.seeded_tree(cfg["model"], seed,
-                                                      mesh.device))
+        weights.load_into(ev.net, weights.seeded_tree(
+            cfg["model"], seed, mesh.device, root), cfg["model"], root)
         replicated(mesh, ev.net)
     else:
         ev.load_params(path)

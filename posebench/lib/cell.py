@@ -20,6 +20,7 @@ import numpy as np
 
 from posebench.lib import scenes, spec
 from posebench.lib.trace import Tracer
+from posebench.reference import decode as ref_decode
 
 
 def process_start_wall() -> float:
@@ -33,13 +34,16 @@ def process_start_wall() -> float:
 
 
 class Cell:
-    """A workload, its configuration and this run's arguments."""
+    """A workload, its configuration, the skeleton of the configuration's
+    architecture and this run's arguments."""
 
     def __init__(self, workload: str, seed: int, seconds: float,
                  trace: bool, device: str = "cuda",
                  root: str = spec.ROOT, t_start: Optional[float] = None):
         self.workload = spec.workload(workload, root)
         self.config = spec.config(self.workload["config"], root)
+        self.skeleton = ref_decode.skeleton(
+            spec.arch(self.config["model"], root).SKELETON, root)
         self.seed, self.seconds, self.trace = seed, seconds, trace
         self.device, self.root = device, root
         self.t_start = process_start_wall() if t_start is None else t_start

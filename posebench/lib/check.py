@@ -46,14 +46,15 @@ REF_BLOCK = 8   # images per reference forward
 def reference_tree(cell, device) -> Dict:
     path = cell.weights_path()
     if path is None:
-        return weights.seeded_tree(cell.config["model"], cell.seed, device)
+        return weights.seeded_tree(cell.config["model"], cell.seed, device,
+                                   cell.root)
     return ref_models.tree_to(msgpack.load_flax_msgpack(path), device)
 
 
 def reference_maps(cell, scene_ids, device, tf32: bool = False,
                    dtype: torch.dtype = torch.float32
                    ) -> Dict[int, torch.Tensor]:
-    """The reference's (h8, w8, 57) maps of each pool scene in
+    """The reference's (h8, w8, heat + PAF) maps of each pool scene in
     ``scene_ids`` (computed in ``dtype``, returned as fp32), on
     ``device``, REF_BLOCK images at a time."""
     tree = reference_tree(cell, device)
@@ -65,7 +66,7 @@ def reference_maps(cell, scene_ids, device, tf32: bool = False,
                             device=device)
         maps = ref_models.forward(cell.config["model"], tree,
                                   ref_models.normalize(x), tf32=tf32,
-                                  dtype=dtype)
+                                  dtype=dtype, root=cell.root)
         out.update(zip(block, maps))
     return out
 
@@ -95,7 +96,7 @@ def humans_gap(ref, out) -> float:
 
 
 def sample(cell, kept: List[Dict]) -> List[tuple]:
-    """(scene id, program maps (h8, w8, 57), program humans) of the
+    """(scene id, program maps (h8, w8, heat + PAF), program humans) of the
     images to compare: ``check_images`` of the kept calls' images,
     drawn from the seed."""
     items = [(s, m, h) for call in kept
@@ -127,7 +128,8 @@ def compare(cell, items: List[tuple], ref: Dict[int, torch.Tensor],
         if ref_low is not None:
             low = float((ref_low[s].double() - r).norm() / r.norm())
             out["maps_rms_ratio"] = max(out["maps_rms_ratio"], rms / low)
-        want = ref_decode.decode(prog, cell.up_h, cell.up_w)
+        want = ref_decode.decode(prog, cell.up_h, cell.up_w,
+                                 skeleton=cell.skeleton)
         out["humans_gap"] = max(out["humans_gap"], humans_gap(want, humans))
     return out
 

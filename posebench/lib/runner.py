@@ -31,17 +31,17 @@ def cell_metrics(bench: Dict, workload: str, trace: bool) -> List[str]:
             if workload in m.get("workloads", [workload])]
 
 
-def peak_lists(peaks_map: np.ndarray, k_min: int = 32
-               ) -> Tuple[np.ndarray, np.ndarray]:
-    """(18, K, 2) integer (x, y) and (18, K) validity of the peaks the
-    decode keeps from a capped peaks map."""
+def peak_lists(peaks_map: np.ndarray, skeleton: ref_decode.Skeleton,
+               k_min: int = 32) -> Tuple[np.ndarray, np.ndarray]:
+    """(parts, K, 2) integer (x, y) and (parts, K) validity of the peaks
+    the decode keeps from a capped peaks map."""
     per = []
-    for p in range(ref_decode.NUM_PARTS):
+    for p in range(skeleton.parts):
         ys, xs = np.nonzero(peaks_map[:, :, p] > ref_decode.PARAMS.thresh_heat)
         per.append(np.stack([xs, ys], 1))
     k = max(k_min, max(len(q) for q in per))
-    pts = np.zeros((ref_decode.NUM_PARTS, k, 2), np.int64)
-    valid = np.zeros((ref_decode.NUM_PARTS, k), bool)
+    pts = np.zeros((skeleton.parts, k, 2), np.int64)
+    valid = np.zeros((skeleton.parts, k), bool)
     for p, q in enumerate(per):
         pts[p, :len(q)] = q
         valid[p, :len(q)] = True
@@ -75,8 +75,10 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     numbers = check.compare(cell, items, ref, dev, ref_low)
     peaks = {}
     for s in {s for c in traced for s in c}:
-        pm, _ = ref_decode.post(ref[s], cell.up_h, cell.up_w)
-        peaks[s] = peak_lists(ref_decode.capped_peaks(pm.cpu().numpy()))
+        pm, _ = ref_decode.post(ref[s], cell.up_h, cell.up_w,
+                                skeleton=cell.skeleton)
+        peaks[s] = peak_lists(ref_decode.capped_peaks(
+            pm.cpu().numpy(), skeleton=cell.skeleton), cell.skeleton)
     limits = cell.config["limits"]
     correct = (bool(items) and outcome["failed"] == 0
                and check.verdict(numbers, limits))

@@ -18,15 +18,26 @@ per-layer metric sits in a file of its own, found by the name that
 * ``entries/<entry>.py``: the code that drives one of the program's
   entry points (a ``run(cell)`` function);
 * ``metrics/<name>.py``: a reader with ``read(ctx)`` that returns the
-  metric's value, or None where it finds nothing to read.
+  metric's value, or None where it finds nothing to read;
+* ``reference/archs/<model>.py``: the plain reference network of a
+  configuration's ``model``: ``SKELETON`` (the name of its skeleton),
+  ``convs()`` (every convolution, in the order the seeded weights are
+  drawn), ``body(net, x)`` (the stride-8 maps, heat first, then PAF)
+  and optionally ``LEAVES`` (parameter leaves of its own, such as a
+  PReLU's slopes; ``reference/models.py:Leaf``);
+* ``reference/skeletons/<name>.json``: a skeleton: the part count, the
+  heat channels (the parts and the background), each limb's ``pairs``
+  of parts and its x, y ``paf_channels``, and the ``redundant`` limbs,
+  which join two humans' parts but never start a human.
 
-A later change adds a configuration, a mix or a metric by adding files:
-the harness asks for the keys it reads itself and passes every other
-key through to the entry that reads it.
+A later change adds a configuration, a mix, a metric or a network with
+its skeleton by adding files: the harness asks for the keys it reads
+itself and passes every other key through to the entry that reads it.
 """
 
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 import os
@@ -44,6 +55,10 @@ WORKLOAD_KEYS = {"config", "entry", "batch", "chips", "scenes", "people",
                  "warmup_calls", "check_images", "trace_calls", "why"}
 CONFIG_KEYS = {"model", "weights", "dtype", "input_wh", "upsample",
                "source", "reduced", "assumed", "limits", "why"}
+SKELETON_KEYS = {"parts", "heat_channels", "pairs", "paf_channels",
+                 "redundant"}
+ARCH_NAMES = ("SKELETON", "convs", "body")
+ARCHS = os.path.join("reference", "archs")
 
 
 def check_name(name: str) -> str:
@@ -75,9 +90,16 @@ def config(name: str, root: str = ROOT) -> Dict:
     return _load_json("configs", name, CONFIG_KEYS, root)
 
 
+def skeleton(name: str, root: str = ROOT) -> Dict:
+    """``reference/skeletons/<name>.json``; ``reference/decode.py:
+    skeleton`` makes it a ``Skeleton``."""
+    return _load_json(os.path.join("reference", "skeletons"), name,
+                      SKELETON_KEYS, root)
+
+
 def names(kind: str, suffix: str, root: str = ROOT) -> List[str]:
     """The names of every piece of one kind (``workloads``, ``configs``,
-    ``metrics``, ``entries``)."""
+    ``metrics``, ``entries``, ``reference/archs``)."""
     d = os.path.join(root, kind)
     return sorted(n[:-len(suffix)] for n in os.listdir(d)
                   if n.endswith(suffix) and not n.startswith("_"))
@@ -85,8 +107,8 @@ def names(kind: str, suffix: str, root: str = ROOT) -> List[str]:
 
 def _module(kind: str, name: str, root: str) -> ModuleType:
     path = os.path.join(root, kind, check_name(name) + ".py")
-    spec = importlib.util.spec_from_file_location(
-        f"posebench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
+    modname = re.sub(r"[^A-Za-z0-9_]", "_", f"posebench_{kind}_{name}")
+    spec = importlib.util.spec_from_file_location(modname, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -114,6 +136,21 @@ def metric_reader(name: str, root: str = ROOT) -> ModuleType:
     mod = _module("metrics", name, root)
     if not UNIT.match(getattr(mod, "UNIT", "")):
         raise ValueError(f"metric {name}: bad UNIT {getattr(mod, 'UNIT')!r}")
+    return mod
+
+
+def arch(model: str, root: str = ROOT) -> ModuleType:
+    """``reference/archs/<model>.py``, loaded once for each file, so
+    that the weights drawn and the forward that reads them agree."""
+    return _arch(os.path.abspath(root), check_name(model))
+
+
+@functools.lru_cache(maxsize=None)
+def _arch(root: str, model: str) -> ModuleType:
+    mod = _module(ARCHS, model, root)
+    missing = [a for a in ARCH_NAMES if not hasattr(mod, a)]
+    if missing:
+        raise ValueError(f"architecture {model}: no {', '.join(missing)}")
     return mod
 
 

@@ -12,30 +12,75 @@ is the NumPy decoder itself. :func:`decode` caps each part's peaks at
 the program's K (32, or 128 where a part saturates 32, as the program's
 adaptive escalation does) and returns humans as
 ``[({part: (x, y, score)}, human_score), ...]`` at the decode size.
+
+Each step follows a :class:`Skeleton` (``skeletons/<name>.json``, found
+by the name an architecture file gives): the heat / PAF split, the
+parts, the limbs in the decoder's order with their PAF channels, and
+the redundant limbs. COCO-18 (``coco18``, the reference's tables) is
+the default.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Sequence
+import functools
+import os
+from typing import FrozenSet, List, Sequence
 
 import numpy as np
 import torch
-from scipy import stats
 
-NUM_PARTS = 18
-NUM_PAIRS = 19
-# (part a, part b) of each limb and its (x, y) channels in the 38 PAF
-# channels (reference ``pafprocess.h`` COCOPAIRS, COCOPAIRS_NET)
-_PAIRS = np.array([
-    [1, 2], [1, 5], [2, 3], [3, 4], [5, 6], [6, 7], [1, 8], [8, 9],
-    [9, 10], [1, 11], [11, 12], [12, 13], [1, 0], [0, 14], [14, 16],
-    [0, 15], [15, 17], [2, 16], [5, 17]])
-_PAF_CH = np.array([
-    [12, 13], [20, 21], [14, 15], [16, 17], [22, 23], [24, 25], [0, 1],
-    [2, 3], [4, 5], [8, 9], [10, 11], [6, 7], [28, 29], [30, 31],
-    [34, 35], [32, 33], [36, 37], [18, 19], [26, 27]])
-PAIRS = _PAIRS
+from posebench.lib import spec
+
+DEFAULT_SKELETON = "coco18"
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Skeleton:
+    """``parts`` part planes and a background make the ``heat_channels``;
+    limb i joins parts ``pairs[i]`` and reads PAF channels
+    ``paf_channels[i]`` (x, y; counted after the heat channels); a
+    ``redundant`` limb joins two humans' parts but never starts one."""
+
+    name: str
+    parts: int
+    heat_channels: int
+    pairs: np.ndarray          # (limbs, 2) part a, part b
+    paf_channels: np.ndarray   # (limbs, 2) x, y
+    redundant: FrozenSet[int]
+
+    @property
+    def limbs(self) -> int:
+        return len(self.pairs)
+
+
+def skeleton(name: str = DEFAULT_SKELETON, root: str = spec.ROOT
+             ) -> Skeleton:
+    """The skeleton ``skeletons/<name>.json``, its tables checked."""
+    return _skeleton(os.path.abspath(root), name)
+
+
+@functools.lru_cache(maxsize=None)
+def _skeleton(root: str, name: str) -> Skeleton:
+    doc = spec.skeleton(name, root)
+    pairs = np.array(doc["pairs"], np.int64).reshape(-1, 2)
+    paf = np.array(doc["paf_channels"], np.int64).reshape(-1, 2)
+    parts, limbs = int(doc["parts"]), len(pairs)
+    redundant = frozenset(int(i) for i in doc["redundant"])
+    if (len(paf) != limbs or not parts < int(doc["heat_channels"])
+            or pairs.min(initial=0) < 0 or pairs.max(initial=0) >= parts
+            or sorted(paf.ravel().tolist()) != list(range(2 * limbs))
+            or not redundant <= set(range(limbs))):
+        raise ValueError(f"skeleton {name}: its pairs, PAF channels, "
+                         f"parts and redundant limbs do not agree")
+    pairs.setflags(write=False)
+    paf.setflags(write=False)
+    return Skeleton(name, parts, int(doc["heat_channels"]), pairs, paf,
+                    redundant)
+
+
+def _or_default(sk: Skeleton = None) -> Skeleton:
+    return skeleton() if sk is None else sk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,22 +118,30 @@ def _area_weights(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _gauss_1d(kernlen: int = 25, nsig: float = 3.0) -> np.ndarray:
+    from scipy import stats
+
     interval = (2.0 * nsig + 1.0) / kernlen
     x = np.linspace(-nsig - interval / 2.0, nsig + interval / 2.0,
                     kernlen + 1)
     return np.diff(stats.norm.cdf(x))
 
 
-def post(maps57: torch.Tensor, up_h: int, up_w: int, kernlen: int = 25,
-         nsig: float = 3.0):
-    """(h8, w8, 57) maps -> (peaks (up_h, up_w, 19), paf_up (up_h, up_w,
-    38)) in float64 on the maps' device: area upsample, blur, NMS."""
-    dev = maps57.device
-    x = maps57.double()
+def post(maps: torch.Tensor, up_h: int, up_w: int, kernlen: int = 25,
+         nsig: float = 3.0, skeleton: Skeleton = None):
+    """(h8, w8, heat + PAF) maps -> (peaks (up_h, up_w, heat), paf_up
+    (up_h, up_w, PAF)) in float64 on the maps' device: area upsample,
+    blur, NMS."""
+    sk = _or_default(skeleton)
+    if maps.shape[-1] != sk.heat_channels + 2 * sk.limbs:
+        raise ValueError(f"{maps.shape[-1]} map channels; skeleton "
+                         f"{sk.name} has {sk.heat_channels} heat and "
+                         f"{2 * sk.limbs} PAF channels")
+    dev = maps.device
+    x = maps.double()
     wh = torch.from_numpy(_area_weights(x.shape[0], up_h)).to(dev)
     ww = torch.from_numpy(_area_weights(x.shape[1], up_w)).to(dev)
     up = torch.einsum("vw,iwc->ivc", ww, torch.einsum("ih,hwc->iwc", wh, x))
-    heat, paf = up[..., :19], up[..., 19:]
+    heat, paf = up[..., :sk.heat_channels], up[..., sk.heat_channels:]
     h, w, c = heat.shape
     pad = kernlen // 2
     k1 = _gauss_1d(kernlen, nsig)
@@ -128,32 +181,36 @@ def cap_peaks(peaks: np.ndarray, k: int) -> np.ndarray:
     return out
 
 
-def capped_peaks(peaks: np.ndarray, params: Params = PARAMS) -> np.ndarray:
+def capped_peaks(peaks: np.ndarray, params: Params = PARAMS,
+                 skeleton: Skeleton = None) -> np.ndarray:
     """The peaks the program decodes: capped at ``max_peaks``, or at the
     escalated cap where a part has more above the threshold."""
-    above = (peaks[:, :, :NUM_PARTS] > params.thresh_heat).sum((0, 1))
+    parts = _or_default(skeleton).parts
+    above = (peaks[:, :, :parts] > params.thresh_heat).sum((0, 1))
     k = (params.escalated_max_peaks if (above > params.max_peaks).any()
          else params.max_peaks)
     return cap_peaks(peaks, k)
 
 
-def decode(maps57: torch.Tensor, up_h: int, up_w: int,
-           params: Params = PARAMS, round_to: torch.dtype = None):
-    """One image's (h8, w8, 57) maps -> humans ``[({part: (x, y,
+def decode(maps: torch.Tensor, up_h: int, up_w: int,
+           params: Params = PARAMS, round_to: torch.dtype = None,
+           skeleton: Skeleton = None):
+    """One image's (h8, w8, heat + PAF) maps -> humans ``[({part: (x, y,
     score)}, human_score), ...]`` at the up_h x up_w decode size.
     ``round_to`` (the control) rounds the maps and the post-graph's
     outputs to that type."""
+    sk = _or_default(skeleton)
     if round_to is not None:
-        maps57 = maps57.to(round_to)
-    peaks, paf = post(maps57, up_h, up_w)
+        maps = maps.to(round_to)
+    peaks, paf = post(maps, up_h, up_w, skeleton=sk)
     if round_to is not None:
         peaks, paf = (t.to(round_to).double() for t in (peaks, paf))
-    peaks = capped_peaks(peaks.cpu().numpy(), params)
-    res = process_paf(peaks, None, paf.cpu().numpy(), params)
+    peaks = capped_peaks(peaks.cpu().numpy(), params, sk)
+    res = process_paf(peaks, None, paf.cpu().numpy(), params, sk)
     humans = []
     for hi in range(res.parts.shape[0]):
         parts = {}
-        for p in range(NUM_PARTS):
+        for p in range(sk.parts):
             cid, x, y, s = res.parts[hi, p]
             if cid >= 0:
                 parts[p] = (int(x), int(y), float(s))
@@ -180,12 +237,12 @@ class Connection:
     peak_score2: float
 
 
-def find_peaks(peaks_map: np.ndarray, thresh_heat: float) -> List[List[Peak]]:
+def find_peaks(peaks_map: np.ndarray, thresh_heat: float,
+               skeleton: Skeleton = None) -> List[List[Peak]]:
     """Scan peak planes in (part, y, x) order assigning global ids."""
-    h, w, _ = peaks_map.shape
     out: List[List[Peak]] = []
     next_id = 0
-    for part in range(NUM_PARTS):
+    for part in range(_or_default(skeleton).parts):
         plane = peaks_map[:, :, part]
         part_peaks: List[Peak] = []
         ys, xs = np.nonzero(plane > thresh_heat)
@@ -263,14 +320,17 @@ def connect_pair(peaks_a: Sequence[Peak], peaks_b: Sequence[Peak],
 
 
 def assemble(connections_by_pair: List[List[Connection]],
-             params: Params) -> List[np.ndarray]:
+             params: Params, skeleton: Skeleton = None) -> List[np.ndarray]:
     """Merge greedy connections into subset rows (reference semantics).
 
-    Row layout: [0:18] part cids (-1 = missing), [18] score sum, [19] count.
+    Row layout, P parts: [0:P] part cids (-1 = missing), [P] score sum,
+    [P + 1] count.
     """
+    sk = _or_default(skeleton)
+    n, score, count = sk.parts, sk.parts, sk.parts + 1
     subset: List[np.ndarray] = []
-    for pair_id in range(NUM_PAIRS):
-        p1, p2 = int(_PAIRS[pair_id, 0]), int(_PAIRS[pair_id, 1])
+    for pair_id in range(sk.limbs):
+        p1, p2 = int(sk.pairs[pair_id, 0]), int(sk.pairs[pair_id, 1])
         for conn in connections_by_pair[pair_id]:
             found_idx = []
             for si, row in enumerate(subset):
@@ -282,39 +342,40 @@ def assemble(connections_by_pair: List[List[Connection]],
                 row = subset[found_idx[0]]
                 if row[p2] != conn.cid2:
                     row[p2] = conn.cid2
-                    row[19] += 1
-                    row[18] += conn.peak_score2 + conn.score
+                    row[count] += 1
+                    row[score] += conn.peak_score2 + conn.score
             elif len(found_idx) == 2:
                 r1, r2 = subset[found_idx[0]], subset[found_idx[1]]
                 membership = 0
-                for i in range(NUM_PARTS):
+                for i in range(n):
                     if r1[i] >= 0 and r2[i] >= 0:
                         membership = 2
                         break
                 if membership == 0:
                     # disjoint rows: fuse (empty slots: -1 + -1 + 1 = -1)
-                    for i in range(NUM_PARTS):
+                    for i in range(n):
                         r1[i] += r2[i] + 1
-                    r1[18] += r2[18] + conn.score
-                    r1[19] += r2[19]
+                    r1[score] += r2[score] + conn.score
+                    r1[count] += r2[count]
                     del subset[found_idx[1]]
                 else:
                     r1[p2] = conn.cid2
-                    r1[19] += 1
-                    r1[18] += conn.peak_score2 + conn.score
-            elif len(found_idx) == 0 and pair_id < 17:
-                row = np.full(20, -1.0, dtype=np.float64)
+                    r1[count] += 1
+                    r1[score] += conn.peak_score2 + conn.score
+            elif len(found_idx) == 0 and pair_id not in sk.redundant:
+                row = np.full(n + 2, -1.0, dtype=np.float64)
                 row[p1] = conn.cid1
                 row[p2] = conn.cid2
-                row[19] = 2
-                row[18] = conn.peak_score1 + conn.peak_score2 + conn.score
+                row[count] = 2
+                row[score] = (conn.peak_score1 + conn.peak_score2
+                              + conn.score)
                 subset.append(row)
     # final filtering
     kept = []
     for row in subset:
-        if row[19] < params.thresh_part_cnt:
+        if row[count] < params.thresh_part_cnt:
             continue
-        if row[18] / row[19] < params.thresh_human_score:
+        if row[score] / row[count] < params.thresh_human_score:
             continue
         kept.append(row)
     return kept
@@ -324,7 +385,7 @@ def assemble(connections_by_pair: List[List[Connection]],
 class OracleResult:
     """Decoded humans in array form: see fields."""
 
-    # (n_humans, 18, 4): [cid, x, y, score]; cid = -1 where part missing
+    # (n_humans, parts, 4): [cid, x, y, score]; cid = -1 where missing
     parts: np.ndarray
     # (n_humans,): score sum / part count (reference get_score)
     scores: np.ndarray
@@ -333,37 +394,40 @@ class OracleResult:
 
 
 def process_paf(peaks_map: np.ndarray, heat_map: np.ndarray,
-                paf_map: np.ndarray,
-                params: Params = PARAMS) -> OracleResult:
-    """Full oracle decode. Shapes: peaks/heat (H, W, 19), paf (H, W, 38).
+                paf_map: np.ndarray, params: Params = PARAMS,
+                skeleton: Skeleton = None) -> OracleResult:
+    """Full oracle decode. Shapes: peaks/heat (H, W, heat channels), paf
+    (H, W, PAF channels).
 
     ``heat_map`` is accepted for signature parity with the reference but,
     as in the reference native decoder, scores are read from the peaks
     plane (which holds the Gaussian-smoothed maxima).
     """
-    peaks_by_part = find_peaks(np.asarray(peaks_map), params.thresh_heat)
+    sk = _or_default(skeleton)
+    peaks_by_part = find_peaks(np.asarray(peaks_map), params.thresh_heat,
+                               sk)
     peaks_by_id = {}
     for plist in peaks_by_part:
         for p in plist:
             peaks_by_id[p.id] = p
     connections_by_pair: List[List[Connection]] = []
-    for pair_id in range(NUM_PAIRS):
-        p1, p2 = int(_PAIRS[pair_id, 0]), int(_PAIRS[pair_id, 1])
-        ch_x, ch_y = int(_PAF_CH[pair_id, 0]), int(_PAF_CH[pair_id, 1])
+    for pair_id in range(sk.limbs):
+        p1, p2 = int(sk.pairs[pair_id, 0]), int(sk.pairs[pair_id, 1])
+        ch_x, ch_y = (int(c) for c in sk.paf_channels[pair_id])
         connections_by_pair.append(
             connect_pair(peaks_by_part[p1], peaks_by_part[p2],
                          np.asarray(paf_map), ch_x, ch_y, params))
-    subset = assemble(connections_by_pair, params)
+    subset = assemble(connections_by_pair, params, sk)
 
     n = len(subset)
-    parts = np.full((n, NUM_PARTS, 4), -1.0, dtype=np.float64)
+    parts = np.full((n, sk.parts, 4), -1.0, dtype=np.float64)
     scores = np.zeros((n,), dtype=np.float64)
     for hi, row in enumerate(subset):
-        for part in range(NUM_PARTS):
+        for part in range(sk.parts):
             cid = int(row[part])
             if cid < 0:
                 continue
             pk = peaks_by_id[cid]
             parts[hi, part] = (cid, pk.x, pk.y, pk.score)
-        scores[hi] = row[18] / row[19]
+        scores[hi] = row[sk.parts] / row[sk.parts + 1]
     return OracleResult(parts=parts, scores=scores, subset=subset)

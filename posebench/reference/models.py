@@ -1,49 +1,43 @@
-"""Plain PyTorch forwards of the benchmark's two backbones, in fp32.
+"""What the plain PyTorch forwards of the benchmark's networks share,
+in fp32.
 
-The OpenPose two-branch networks as published (arXiv:1611.08050 for
-CMU's VGG-19 network; ildoonet/tf-pose-estimation's
-``network_mobilenet_thin.py`` for mobilenet_thin), written from their
-layer equations with ``torch.nn.functional`` alone: TF ``SAME`` padding
-made explicit, convolutions in fp32 with TF32 off, BatchNorm in
-inference form ``(x - mean) / sqrt(var + 1e-3) * scale + bias``. The
-weights are a flax variables tree (``params`` and ``batch_stats``,
-conv kernels HWIO), as the checkpoints store them; nothing here is the
-program's code or takes anything the program made.
+Each network is an architecture file, ``reference/archs/<model>.py``,
+found by the configuration's ``model`` (``lib/spec.py:arch``): the
+OpenPose two-branch networks as published, written from their layer
+equations with ``torch.nn.functional`` alone. This module holds what
+they share: TF ``SAME`` padding made explicit, convolutions in fp32
+with TF32 off, BatchNorm in inference form ``(x - mean) / sqrt(var +
+1e-3) * scale + bias``, the 2x2 max-pool. The weights are a flax
+variables tree (``params`` and ``batch_stats``, conv kernels HWIO), as
+the checkpoints store them; nothing here is the program's code or takes
+anything the program made.
 
-``spec(model)`` lists every convolution of a network; ``random_tree``
-builds a tree of seeded weights from it on a device, and
-``forward(model, tree, x)`` maps a normalized NHWC batch to the
-57-channel stride-8 maps (heat 19, then PAF 38), NHWC.
+``random_tree`` builds a tree of seeded weights on a device from an
+architecture's ``convs()`` (and its ``LEAVES``), and ``forward(model,
+tree, x)`` maps a normalized NHWC batch to the stride-8 maps of its
+``body``, NHWC: the heat channels of its skeleton, then the PAF
+channels.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-BN_EPS = 1e-3
+from posebench.lib import spec
 
-# mobilenet_thin: conv_width 0.75, conv_width2 0.5, depths at least 8
-_THIN_BACKBONE = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1),
-                  (512, 1), (512, 1), (512, 1), (512, 1), (512, 1), (512, 1)]
-# CMU's VGG-19 prefix and CPM feature convs; "pool" is a 2x2 max-pool
-_VGG = [("conv1_1", 64), ("conv1_2", 64), "pool",
-        ("conv2_1", 128), ("conv2_2", 128), "pool",
-        ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256),
-        ("conv3_4", 256), "pool",
-        ("conv4_1", 512), ("conv4_2", 512),
-        ("conv4_3_CPM", 256), ("conv4_4_CPM", 128)]
-NUM_STAGES = 6
+BN_EPS = 1e-3
 
 
 class Conv(NamedTuple):
     """One convolution: its path in the tree, kernel size, input and
     output channels, stride, whether it is depthwise, whether a bias
-    (CMU) or a BatchNorm (mobilenet) follows it."""
+    (CMU) or a BatchNorm (mobilenet) follows it, and the modules of the
+    architecture's own ``LEAVES`` that follow it."""
 
     path: Tuple[str, ...]
     k: int
@@ -53,82 +47,23 @@ class Conv(NamedTuple):
     depthwise: bool = False
     bias: bool = False
     bn: str = ""
+    leaves: Tuple[str, ...] = ()
 
 
-def _thin_depth(ch: int) -> int:
-    return max(int(ch * 0.75), 8)
+class Leaf(NamedTuple):
+    """A parameter leaf of an architecture's own, which follows a conv
+    as its BatchNorm does: an entry ``module: Leaf`` of the file's
+    ``LEAVES``, named in a ``Conv``'s ``leaves``, puts ``name`` of
+    ``shape(conv)`` at the conv's path with ``module`` in place of the
+    conv's own module name, filled with ``init`` in a seeded tree; the
+    program's state dict calls it ``suffix`` (a PReLU's slopes:
+    ``Leaf("alpha", lambda c: (c.cout,), 0.25, "weight")``)."""
 
-
-def _thin_depth2(ch: int) -> int:
-    return max(int(ch * 0.5), 8)
-
-
-def _separable(path, k, cin, cout, stride=1) -> List[Conv]:
-    return [Conv(path + ("depthwise",), k, cin, cin, stride, True,
-                 bn="dw_bn"),
-            Conv(path + ("pointwise",), 1, cin, cout, bn="pw_bn")]
-
-
-def _thin_stage_branches(s: int, in_ch: int):
-    mid, mid2 = _thin_depth2(128), _thin_depth2(512)
-    for li, out in ((1, 38), (2, 19)):
-        ch, convs = in_ch, []
-        for i, (k, o) in enumerate(((3, mid), (3, mid), (3, mid),
-                                    (1, mid2), (1, out)), start=1):
-            convs.append(((f"MConv_Stage{s}", f"L{li}_{i}"), k, ch, o))
-            ch = o
-        yield convs
-
-
-def _thin_feat_ch() -> int:
-    return _thin_depth(128) + _thin_depth(512) + _thin_depth(512)
-
-
-def spec(model: str) -> List[Conv]:
-    """Every convolution of ``model`` ("mobilenet_thin" or "cmu")."""
-    out: List[Conv] = []
-    if model == "mobilenet_thin":
-        out.append(Conv(("Conv2d_0", "conv"), 3, 3, _thin_depth(32), 2,
-                        bn="bn"))
-        ch = _thin_depth(32)
-        for i, (o, s) in enumerate(_THIN_BACKBONE, start=1):
-            out += _separable((f"Conv2d_{i}",), 3, ch, _thin_depth(o), s)
-            ch = _thin_depth(o)
-        for s in range(1, NUM_STAGES + 1):
-            in_ch = _thin_feat_ch() + (0 if s == 1 else 57)
-            for branch in _thin_stage_branches(s, in_ch):
-                for path, k, ci, co in branch:
-                    out += _separable(path, k, ci, co)
-        return out
-    if model == "cmu":
-        ch = 3
-        for layer in _VGG:
-            if layer != "pool":
-                out.append(Conv((layer[0], "conv"), 3, ch, layer[1],
-                                bias=True))
-                ch = layer[1]
-        for li, o in ((1, 38), (2, 19)):
-            ch = 128
-            for i in (1, 2, 3):
-                out.append(Conv((f"conv5_{i}_CPM_L{li}", "conv"), 3, ch,
-                                128, bias=True))
-                ch = 128
-            out.append(Conv((f"conv5_4_CPM_L{li}", "conv"), 1, 128, 512,
-                            bias=True))
-            out.append(Conv((f"conv5_5_CPM_L{li}", "conv"), 1, 512, o,
-                            bias=True))
-            for s in range(2, NUM_STAGES + 1):
-                ch = 57 + 128
-                for i in range(1, 6):
-                    out.append(Conv((f"Mconv{i}_stage{s}_L{li}", "conv"), 7,
-                                    ch, 128, bias=True))
-                    ch = 128
-                out.append(Conv((f"Mconv6_stage{s}_L{li}", "conv"), 1, 128,
-                                128, bias=True))
-                out.append(Conv((f"Mconv7_stage{s}_L{li}", "conv"), 1, 128,
-                                o, bias=True))
-        return out
-    raise ValueError(f"no reference for model {model!r}")
+    name: str
+    shape: Callable[[Conv], Tuple[int, ...]]
+    init: float
+    suffix: str
+    collection: str = "params"
 
 
 def _node(tree: Dict, path) -> Dict:
@@ -143,12 +78,14 @@ def _put(tree: Dict, path, leaf: str, value) -> None:
     tree[leaf] = value
 
 
-def random_tree(model: str, generator: torch.Generator,
-                device) -> Dict[str, Dict]:
+def random_tree(model: str, generator: torch.Generator, device,
+                root: str = spec.ROOT) -> Dict[str, Dict]:
     """A variables tree of seeded weights on ``device``: conv kernels
     drawn from N(0, 1 / fan_in) (LeCun normal) by one call of the
-    generator for all of them, biases 0, BatchNorm at identity."""
-    convs = spec(model)
+    generator for all of them, biases 0, BatchNorm at identity, the
+    architecture's own leaves at their ``init``."""
+    arch = spec.arch(model, root)
+    convs = arch.convs()
     sizes = [c.k * c.k * (1 if c.depthwise else c.cin) * c.cout
              for c in convs]
     flat = torch.randn(sum(sizes), generator=generator, device=device)
@@ -172,6 +109,11 @@ def random_tree(model: str, generator: torch.Generator,
             stats = tree.setdefault("batch_stats", {})
             _put(stats, bn_path, "mean", torch.zeros(c.cout, device=device))
             _put(stats, bn_path, "var", torch.ones(c.cout, device=device))
+        for module in c.leaves:
+            leaf = arch.LEAVES[module]
+            _put(tree.setdefault(leaf.collection, {}),
+                 c.path[:-1] + (module,), leaf.name,
+                 torch.full(leaf.shape(c), leaf.init, device=device))
     return tree
 
 
@@ -196,6 +138,10 @@ class _Net:
         self.params = tree["params"]
         self.stats = tree.get("batch_stats", {})
         self.count = count
+
+    def node(self, path) -> Dict:
+        """The parameters at ``path`` (an architecture's own leaves)."""
+        return _node(self.params, path)
 
     def conv(self, x: torch.Tensor, path, stride: int = 1,
              relu: bool = True, bn: str = "") -> torch.Tensor:
@@ -226,54 +172,13 @@ class _Net:
         x = self.conv(x, path + ("depthwise",), stride, bn="dw_bn")
         return self.conv(x, path + ("pointwise",), relu=relu, bn="pw_bn")
 
-
-def _max_pool(x: torch.Tensor) -> torch.Tensor:
-    top, bottom = _same_pads(x.shape[-2], 2, 2)
-    left, right = _same_pads(x.shape[-1], 2, 2)
-    x = F.pad(x, (left, right, top, bottom), value=-float("inf"))
-    return F.max_pool2d(x, 2, 2)
-
-
-def _thin(net: _Net, x: torch.Tensor) -> torch.Tensor:
-    x = net.conv(x, ("Conv2d_0", "conv"), 2, bn="bn")
-    taps = {}
-    for i, (_, s) in enumerate(_THIN_BACKBONE, start=1):
-        x = net.separable(x, (f"Conv2d_{i}",), s)
-        taps[i] = x
-    feat = torch.cat([_max_pool(taps[3]), taps[7], taps[11]], 1)
-    h = feat
-    for s in range(1, NUM_STAGES + 1):
-        if s > 1:
-            h = torch.cat([paf, heat, feat], 1)
-        branches = []
-        for branch in _thin_stage_branches(s, h.shape[1]):
-            b = h
-            for i, (path, k, _, _) in enumerate(branch):
-                b = net.separable(b, path, relu=i < 4)
-            branches.append(b)
-        paf, heat = branches
-    return torch.cat([heat, paf], 1)
-
-
-def _cmu(net: _Net, x: torch.Tensor) -> torch.Tensor:
-    h = x
-    for layer in _VGG:
-        h = _max_pool(h) if layer == "pool" else net.conv(h, (layer[0],
-                                                              "conv"))
-
-    def branch(names, inp):
-        for i, name in enumerate(names):
-            inp = net.conv(inp, (name, "conv"), relu=i < len(names) - 1)
-        return inp
-
-    feat = h
-    paf, heat = (branch([f"conv5_{i}_CPM_L{li}" for i in range(1, 6)], feat)
-                 for li in (1, 2))
-    for s in range(2, NUM_STAGES + 1):
-        inp = torch.cat([paf, heat, feat], 1)
-        paf, heat = (branch([f"Mconv{i}_stage{s}_L{li}" for i in range(1, 8)],
-                            inp) for li in (1, 2))
-    return torch.cat([heat, paf], 1)
+    @staticmethod
+    def max_pool(x: torch.Tensor) -> torch.Tensor:
+        """2x2, stride 2, TF ``SAME``."""
+        top, bottom = _same_pads(x.shape[-2], 2, 2)
+        left, right = _same_pads(x.shape[-1], 2, 2)
+        x = F.pad(x, (left, right, top, bottom), value=-float("inf"))
+        return F.max_pool2d(x, 2, 2)
 
 
 @contextlib.contextmanager
@@ -289,14 +194,16 @@ def _tf32(enabled: bool):
 
 def forward(model: str, tree: Dict, x: torch.Tensor,
             tf32: bool = False, count: List[int] = None,
-            dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Normalized (N, H, W, 3) fp32 -> (N, H/8, W/8, 57) fp32 maps, in
-    true fp32 (``tf32=True`` lets cuDNN round the convs' inputs to TF32:
-    the control). ``dtype=torch.bfloat16`` computes as a bf16 network
-    with fp32 parameters does (activations, kernels and biases rounded to
-    bf16, BatchNorm in fp32): what the stated precision alone gives.
-    ``count`` receives each conv's multiply-adds."""
-    body = {"mobilenet_thin": _thin, "cmu": _cmu}[model]
+            dtype: torch.dtype = torch.float32,
+            root: str = spec.ROOT) -> torch.Tensor:
+    """Normalized (N, H, W, 3) fp32 -> (N, H/8, W/8, heat + PAF) fp32
+    maps of ``model``'s architecture, in true fp32 (``tf32=True`` lets
+    cuDNN round the convs' inputs to TF32: the control).
+    ``dtype=torch.bfloat16`` computes as a bf16 network with fp32
+    parameters does (activations, kernels and biases rounded to bf16,
+    BatchNorm in fp32): what the stated precision alone gives. ``count``
+    receives each conv's multiply-adds."""
+    body = spec.arch(model, root).body
     with torch.no_grad(), _tf32(tf32):
         out = body(_Net(tree, count), x.to(dtype).permute(0, 3, 1, 2))
     return out.permute(0, 2, 3, 1).float()

@@ -7,12 +7,15 @@ import pytest
 import torch
 
 from posebench.lib import counts
-from posebench.reference.decode import PAIRS
+from posebench.reference import decode as ref_decode
 from tfpose_tpu_torch.estimator import TfPoseEstimator
 from tfpose_tpu_torch.ops.kernels.paf_score import candidate_geometry
 from tfpose_tpu_torch.ops.kernels.smooth_nms import _phase_tables
 from tfpose_tpu_torch.ops.nms import Peaks
 from tfpose_tpu_torch.core.config import DecodeParams
+
+# COCO-18's limbs, the skeleton of both networks (``skeletons/coco18.json``)
+PAIRS = ref_decode.skeleton("coco18").pairs
 
 
 @pytest.mark.parametrize("model,wh,gflop", [

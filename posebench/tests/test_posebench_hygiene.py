@@ -41,8 +41,21 @@ for m in spec.names("metrics", ".py"):
 
 
 def test_the_reference_loads_nothing_of_the_program():
-    loaded = _loaded("from posebench.reference import decode, models, "
-                     "msgpack\nfrom posebench.lib import counts, scenes")
+    """Nor does any architecture file or skeleton: each is loaded, and
+    each network drawn and run on the meta device."""
+    loaded = _loaded("""
+from posebench.reference import decode, models, msgpack
+from posebench.lib import counts, scenes, spec
+for name in spec.names("reference/archs", ".py"):
+    decode.skeleton(spec.arch(name).SKELETON)
+    counts.model_flops(name, 64, 96)
+for name in spec.names("reference/skeletons", ".json"):
+    decode.skeleton(name)
+""")
+    from posebench.lib import spec
+
+    assert {"mobilenet_thin", "cmu"} <= set(spec.names("reference/archs",
+                                                       ".py"))
     assert "posebench" in loaded
     assert not loaded & (FORBIDDEN | {"tfpose_tpu_torch"}), loaded
 
