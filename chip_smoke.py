@@ -24,16 +24,21 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      ``decode_batch`` hands it: rendered 46x54 scenes at B = 1 and 16,
      CMU's B = 16 with no peaks, a crowded 90x160 scene at K = 32
      (saturated) and K = 128, and a constructed case on which the
-     redundant-pair walk extends, fuses and attaches;
+     redundant-pair walk extends, fuses and attaches; K6, BODY_25's bias
+     and PReLU, bit for bit in fp32 and bf16 at its B = 16 46x82 grid,
+     channels last: a block conv in place and into its concat slice
+     (C = 96, 128), a third block conv into its slice alone, Mconv6 and
+     the CPM convs in place (C = 256, 512), nothing written outside;
   3. main path: the mobilenet_thin estimator with the committed
      ``thin368_coco`` weights and 432x368 input, path by path, each with
      the launch counts set to 0 just before it and read just after:
      ``inference`` and ``inference_batch`` at upsample 4 on rendered
      432x368 scenes, ``inference_windowed`` on two rendered 1280x720
      frames and ``inference_multiscale`` (scales 1.0, 1.5) on one, at
-     upsample 4, and ``inference_batch`` at upsample 2.5; every kernel
-     must launch, the full-resolution top-K on each 720p and 2.5x path
-     and the raw-grid one on no 720p path, and the humans must equal
+     upsample 4, and ``inference_batch`` at upsample 2.5; every decode
+     kernel must launch (K6, BODY_25's, must not), the full-resolution
+     top-K on each 720p and 2.5x path and the raw-grid one on no 720p
+     path, and the humans must equal
      those of the same estimator on the CPU; its AP50 on 50 rendered
      432x368 scenes must reach 0.95 (``tests/test_coco_path.py``'s gate
      for ``thin368_coco``). The card's area downscale
@@ -49,18 +54,27 @@ Phases, each printing a flushed start and end line with elapsed seconds:
      ``concat_stage7`` against the CPU forward of two frames (TF32 off),
      K1-K3 against their plain versions on the card's own CMU maps, and
      rendered 46x82 scene maps through ``decode_batch`` (B = 1, 16) and
-     ``postprocess`` with humans equal to the CPU decode's;
+     ``postprocess`` with humans equal to the CPU decode's; ``body25``
+     (seeded random weights) at 656x368: the benchmark cell's path,
+     ``inference_batch`` B=16 in bf16, launching K6 99 times (one
+     forward) and K1 and K5 once; its fp32 ``concat_stage7`` against the
+     CPU forward of two frames (TF32 off); 16 planted 46x82 scenes
+     through the 25-part ``decode_batch`` (K1, K3, K5 once each), humans
+     equal to the CPU decode's;
   5. timing (CUDA events, after warm-up; device time per launch from
      ``torch.profiler``): each kernel (the two top-K kernels at both
      shapes of their paths: B = 1 and 8 at 4x; 360x640x18 and
      115x135x144; the candidate scorer at B = 1 and 8 and on the 90x160
      grid; the assembly at thin B = 16 and 1, CMU B = 16 without peaks
-     and the crowded scene at K = 128), ``inference``
+     and the crowded scene at K = 128; K6 in bf16 at B = 16 46x82 for
+     C = 96 and 128 with two writes, 128 into a slice and 512 in place,
+     beside the eager bias add, ``F.prelu`` and copies), ``inference``
      latency, ``inference_batch`` images per second at B = 1, 8, 16 and
      at upsample 2.5, and ``inference_windowed`` / ``inference_multiscale``
      latency on 1280x720 frames; ``torch.profiler`` breakdowns; and for
      the backbones of phase 4: latency (median, p90), images per second
-     of the batches, and their profiles; K1-K3 at the new grids;
+     of the batches, and their profiles (BODY_25's B=16 bf16 batch too,
+     K6's launches and device ms a call); K1-K3 at the new grids;
   6. serving, path by path with the launch counts reset before each:
      ``VideoPipeline`` (thin368_coco) on 24 rendered 640x480 frames at
      depths 1, 2 and 3 (forwards on their own CUDA stream), its humans
@@ -347,20 +361,23 @@ def k5_compare(got, want, what: str) -> None:
                  else ""))
 
 
-def assembly_inputs(net_b, up_h, up_w, params):
+def assembly_inputs(net_b, up_h, up_w, params, skeleton=None):
     """(peaks, connections) that ``decode_batch`` hands the assembly for
-    (B, h8, w8, 57) net outputs, on their device."""
+    (B, h8, w8, C) net outputs of ``skeleton`` (COCO-18's 57 channels by
+    default), on their device."""
+    from tfpose_tpu_torch.core.topology import COCO18
     from tfpose_tpu_torch.ops import assemble, decode
 
+    skeleton = skeleton or COCO18
     seen = []
 
-    def keep(pk, conns, p, size=None):
+    def keep(pk, conns, p, size=None, sk=COCO18):
         seen.append((pk, conns))
-        return assemble.assemble_dense_plain(pk, conns, p)
+        return assemble.assemble_dense_plain(pk, conns, p, sk)
 
     decode.assemble_dense = keep
     try:
-        decode.decode_batch(net_b, up_h, up_w, params)
+        decode.decode_batch(net_b, up_h, up_w, params, skeleton)
     finally:
         decode.assemble_dense = assemble.assemble_dense
     return seen[0]
@@ -417,6 +434,44 @@ def walk_case(k: int = 16):
     return pk, Connections(a_slot=a_slot, b_slot=b_slot,
                            score=torch.where(c_valid, 0.8, 0.0),
                            valid=c_valid)
+
+
+def random_assembly_case(skeleton, b: int = 8, k: int = 8, seed: int = 0):
+    """Peaks (b, parts, k) and greedy-shaped connections (b, limbs, k) of
+    ``skeleton``, drawn from ``seed``: a random number of valid peaks a
+    part (a prefix of the slots, at distinct places), and on every limb
+    a random one-to-one matching of valid slots in its first m slots, so
+    that rows fuse, attach and extend often. Scores in (0.3, 1)."""
+    import numpy as np
+    import torch
+
+    from tfpose_tpu_torch.ops.nms import Peaks
+    from tfpose_tpu_torch.ops.paf import Connections
+
+    rng = np.random.default_rng(seed)
+    parts, limbs = skeleton.num_parts, skeleton.num_pairs
+    n_valid = rng.integers(1, k + 1, (b, parts))
+    valid = np.arange(k)[None, None, :] < n_valid[..., None]
+    flat = rng.permutation(10_000)[:b * parts * k].reshape(b, parts, k)
+    a_slot = np.full((b, limbs, k), -1, np.int32)
+    b_slot = a_slot.copy()
+    for i in range(b):
+        for lim, (pa, pb) in enumerate(skeleton.pairs):
+            na, nb = n_valid[i, pa], n_valid[i, pb]
+            m = int(rng.integers(0, min(na, nb) + 1))
+            a_slot[i, lim, :m] = rng.permutation(na)[:m]
+            b_slot[i, lim, :m] = rng.permutation(nb)[:m]
+    c_valid = a_slot >= 0
+    pk = Peaks(x=torch.from_numpy((flat % 100).astype(np.int32)),
+               y=torch.from_numpy((flat // 100).astype(np.int32)),
+               score=torch.from_numpy(np.where(valid, rng.uniform(
+                   0.3, 1.0, valid.shape), 0.0).astype(np.float32)),
+               valid=torch.from_numpy(valid))
+    return pk, Connections(
+        a_slot=torch.from_numpy(a_slot), b_slot=torch.from_numpy(b_slot),
+        score=torch.from_numpy(np.where(c_valid, rng.uniform(
+            0.3, 1.0, c_valid.shape), 0.0).astype(np.float32)),
+        valid=torch.from_numpy(c_valid))
 
 
 def walk_branches(out, img: int):
@@ -493,6 +548,8 @@ V2L_INF = "mobilenet_v2_large inference x4 432x368 (4x)"
 CMU_INF = "cmu inference 656x368 (4x)"
 CMU_BATCH = "cmu inference_batch B=16 656x368 (4x)"
 CMU_MAPS = "cmu rendered 46x82 maps: decode_batch B=1, B=16, postprocess"
+B25_BATCH = "body25 inference_batch B=16 656x368 bf16 (4x)"
+B25_MAPS = "body25 planted 46x82 maps: decode_batch B=16"
 
 
 def planes_up(net_b, up_h, up_w):
@@ -516,13 +573,107 @@ def scene_nets(seed, people, h8, w8):
                      for n in people])
 
 
-def humans_of(out):
-    """A batched decode result -> a list of human lists."""
-    from tfpose_tpu_torch.estimator import TfPoseEstimator
+# a BODY_25 person's parts about the neck, in stride-8 cells (x, y)
+BODY25_POSE = (
+    (0, -4), (0, 0), (-3, 0), (-4, 4), (-5, 8), (3, 0), (4, 4), (5, 8),
+    (0, 9), (-2, 9), (-2, 14), (-2, 19), (2, 9), (2, 14), (2, 19),
+    (-1, -5), (1, -5), (-2.5, -4), (2.5, -4), (3, 21.5), (4.5, 21.5),
+    (1.5, 20.5), (-3, 21.5), (-4.5, 21.5), (-1.5, 20.5))
+
+
+def body25_maps(people, h8=46, w8=82):
+    """(h8, w8, 78) BODY_25 maps of planted people: ``people`` is a list
+    of (neck (x, y) in cells, parts to leave out, limbs to leave out).
+    Each part a Gaussian (sigma one cell, its centre off the cell grid so
+    that the blurred peak is unique) in its heat channel, the background
+    1 - their max, and each limb's unit vector within 1.5 cells of its
+    segment in the limb's own PAF channels (BODY_25's map-index order)."""
+    import numpy as np
+
+    from tfpose_tpu_torch.core.topology import BODY25
+
+    sk = BODY25
+    yy, xx = np.mgrid[0:h8, 0:w8].astype(np.float64)
+    maps = np.zeros((h8, w8, sk.out_ch))
+    for neck, drop_parts, drop_limbs in people:
+        parts = np.asarray(BODY25_POSE) + np.asarray(neck) + (0.3, 0.2)
+        for p, (x, y) in enumerate(parts):
+            if p not in drop_parts:
+                g = np.exp(-((xx - x) ** 2 + (yy - y) ** 2) / 2.0)
+                maps[..., p] = np.maximum(maps[..., p], g)
+        for i, ((a, b), (cx, cy)) in enumerate(zip(sk.pairs,
+                                                   sk.paf_channels)):
+            if i in drop_limbs or a in drop_parts or b in drop_parts:
+                continue
+            d = parts[b] - parts[a]
+            length = np.hypot(*d)
+            u = d / length
+            rx, ry = xx - parts[a][0], yy - parts[a][1]
+            along = rx * u[0] + ry * u[1]
+            across = np.abs(rx * u[1] - ry * u[0])
+            on = (along >= -1) & (along <= length + 1) & (across <= 1.5)
+            maps[on, sk.heat_ch + cx] = u[0]
+            maps[on, sk.heat_ch + cy] = u[1]
+    maps[..., sk.num_parts] = 1.0 - maps[..., :sk.num_parts].max(-1)
+    return maps.astype(np.float32)
+
+
+# three planted BODY_25 people: one whole; one without its right eye, so
+# that its right ear joins through the redundant RShoulder-REar limb
+# alone; one whose Neck-Nose limb is missing, so that its head is a row
+# of its own until LShoulder-LEar and RShoulder-REar fuse it to the body
+BODY25_PEOPLE = (((14, 10), (), ()),
+                 ((40, 11), (15,), ()),
+                 ((66, 9), (), (13,)))
+
+
+def body25_scenes(n=16):
+    """``n`` planted BODY_25 scenes (46x82 maps, stacked): the people of
+    ``BODY25_PEOPLE`` shifted along the frame, some dropped."""
+    import numpy as np
+
+    out = []
+    for i in range(n):
+        people = [(((nx + i) % 70 + 6, ny), dp, dl)
+                  for j, ((nx, ny), dp, dl) in enumerate(BODY25_PEOPLE)
+                  if (i + j) % 4]
+        out.append(body25_maps(people))
+    return np.stack(out)
+
+
+def k6_inputs(c, dtype, device, writes, seed=0, b=16, h=46, w=82):
+    """K6's arguments at BODY_25's B=16 grid, channels last as the
+    network holds its activations: (y, bias, alpha, outs, buf). ``writes``
+    is "block" (in place and into the middle third of a zeroed concat
+    buffer ``buf``, as a block's first two convs), "slice" (into that
+    third alone, as its third conv) or "whole" (in place, as Mconv6 and
+    the CPM convs; ``buf`` None)."""
+    import torch
+
+    cl = torch.channels_last
+    gen = torch.Generator(device=device).manual_seed(seed)
+    y = torch.randn((b, c, h, w), generator=gen, device=device).to(
+        dtype).contiguous(memory_format=cl)
+    bias = torch.randn(c, generator=gen, device=device)
+    alpha = torch.rand(c, generator=gen, device=device) - 0.2
+    if writes == "whole":
+        return y, bias, alpha, [y], None
+    buf = torch.zeros((b, 3 * c, h, w), dtype=dtype,
+                      device=device).contiguous(memory_format=cl)
+    part = buf[:, c:2 * c]
+    return y, bias, alpha, [y, part] if writes == "block" else [part], buf
+
+
+def humans_of(out, skeleton=None):
+    """A batched decode result -> a list of human lists (COCO-18's parts
+    unless ``skeleton`` says otherwise)."""
+    from tfpose_tpu_torch.core.topology import COCO18
+    from tfpose_tpu_torch.core.types import PoseArrays
     from tfpose_tpu_torch.ops.assemble import Assembled
 
     arrays = Assembled(*(t.cpu().numpy() for t in out))
-    return [TfPoseEstimator._humans(Assembled(*(a[i] for a in arrays)))
+    return [PoseArrays.of(Assembled(*(a[i] for a in arrays)),
+                          skeleton or COCO18).to_humans()
             for i in range(arrays.coords.shape[0])]
 
 
@@ -543,6 +694,7 @@ def video_serial(est, frames, upsample_size: float = 4.0):
     """The serial loop that ``VideoPipeline`` must equal bit for bit:
     each frame's forward, then its decode without escalation, on the
     current stream, one frame after the other."""
+    from tfpose_tpu_torch.core.types import PoseArrays
     from tfpose_tpu_torch.ops.assemble import Assembled
     from tfpose_tpu_torch.ops.decode import decode
 
@@ -551,8 +703,10 @@ def video_serial(est, frames, upsample_size: float = 4.0):
     for frame in frames:
         net = est._forward(frame[None], h, w)[0]
         res = decode(net, int(h / 8 * upsample_size),
-                     int(w / 8 * upsample_size), est.decode_params)
-        out.append(est._humans(Assembled(*(t.cpu().numpy() for t in res))))
+                     int(w / 8 * upsample_size), est.decode_params,
+                     est.skeleton)
+        out.append(est._humans(PoseArrays.of(
+            Assembled(*(t.cpu().numpy() for t in res)), est.skeleton)))
     return out
 
 
@@ -620,8 +774,9 @@ def same_humans(got, want, what: str) -> None:
 # launch counts before its path and returns them with its results.
 
 def kernel_wrappers():
-    """The five kernels' wrappers, by name; each counts its launches."""
+    """The six kernels' wrappers, by name; each counts its launches."""
     from tfpose_tpu_torch.ops.assemble import assemble_dense
+    from tfpose_tpu_torch.ops.kernels.bias_prelu import bias_prelu
     from tfpose_tpu_torch.ops.kernels.paf_score import score_candidates_raw
     from tfpose_tpu_torch.ops.kernels.smooth_nms import (
         smooth_nms, smooth_nms_topk, smooth_nms_topk_raw)
@@ -630,7 +785,8 @@ def kernel_wrappers():
             "smooth_nms": smooth_nms,
             "score_candidates_raw": score_candidates_raw,
             "smooth_nms_topk": smooth_nms_topk,
-            "assemble_dense": assemble_dense}
+            "assemble_dense": assemble_dense,
+            "bias_prelu": bias_prelu}
 
 
 def counted(run):
@@ -865,6 +1021,8 @@ def main() -> int:
         decode_batch, decode_maps, postprocess)
     from tfpose_tpu_torch.ops import resize
     from tfpose_tpu_torch.ops.kernels import build
+    from tfpose_tpu_torch.ops.kernels.bias_prelu import (
+        bias_prelu, bias_prelu_plain)
     from tfpose_tpu_torch.ops.nms import Peaks
     from tfpose_tpu_torch.ops.paf import Connections
     from tfpose_tpu_torch.core.topology import pairs_array
@@ -881,11 +1039,7 @@ def main() -> int:
     from tfpose_tpu_torch.utils.profiling import card_name_and_power
 
     dev = torch.device("cuda")
-    wrappers = {"smooth_nms_topk_raw": smooth_nms_topk_raw,
-                "smooth_nms": smooth_nms,
-                "score_candidates_raw": score_candidates_raw,
-                "smooth_nms_topk": smooth_nms_topk,
-                "assemble_dense": assemble_dense}
+    wrappers = kernel_wrappers()
     err = {name: 0.0 for name in wrappers}
     params = DecodeParams()
 
@@ -902,7 +1056,7 @@ def main() -> int:
         log(f"built {len(build.build_log)} kernel libraries in {secs:.2f} s "
             f"into {build.build_dir()}, one nvcc each, started together")
         for stem in ("smooth_nms_topk_raw", "smooth_nms", "paf_score",
-                     "smooth_nms_topk", "assemble"):
+                     "smooth_nms_topk", "assemble", "bias_prelu"):
             t = build.build_seconds.get(stem)
             log(f"  build {stem}: " + (f"{t:.2f} s" if t is not None else
                                        "found built from these sources"))
@@ -1108,6 +1262,32 @@ def main() -> int:
                   f"K5 walk case image {img}: {walk_branches(got, img)}")
         log("K5 walk case: extend, fuse and attach on both ear pairs")
 
+        # K6 at BODY_25's B=16 grid (46x82), channels last: a block conv
+        # in place and into its concat slice (C = 96, 128), a block's
+        # third conv into its slice alone, Mconv6 and the CPM convs in
+        # place (C = 256, 512); fp32 and bf16, bit for bit
+        for dtype in (torch.float32, torch.bfloat16):
+            for c, writes in ((96, "block"), (128, "block"), (128, "slice"),
+                              (256, "whole"), (512, "whole")):
+                y, bias, alpha, outs, buf = k6_inputs(c, dtype, dev, writes,
+                                                      seed=c)
+                want = torch.empty_like(y)
+                bias_prelu_plain(y, bias, alpha, [want])
+                n0 = bias_prelu.launches
+                bias_prelu(y, bias, alpha, outs)
+                check(bias_prelu.launches == n0 + 1,
+                      f"K6 launched {bias_prelu.launches - n0} times")
+                for out in outs:
+                    d = (out.float() - want.float()).abs().max().item()
+                    err["bias_prelu"] = max(err["bias_prelu"], d)
+                    check(torch.equal(out, want), f"K6 differs from its "
+                          f"plain version: {dtype} C={c} {writes}, |d| {d}")
+                if buf is not None:
+                    check(not bool(buf[:, :c].any() or buf[:, 2 * c:].any()),
+                          f"K6 wrote outside its slice: {dtype} C={c}")
+                log(f"K6 bias_prelu {dtype} {tuple(y.shape)} {writes} "
+                    f"({len(outs)} writes): bit for bit")
+
     with phase("3 main path"):
         imgs = render_frames(np.random.default_rng(7), 8, 368, 432)
         frames = render_frames(np.random.default_rng(720), 2, 720, 1280)
@@ -1145,7 +1325,10 @@ def main() -> int:
                     for name in wrappers}
         log(f"launch counts on the main path: {launches}")
         for name, n in launches.items():
-            check(n > 0, f"the main path never launched {name}")
+            # K6 is BODY_25's (phase 4); mobilenet_thin has no PReLU
+            check(n > 0 or name == "bias_prelu",
+                  f"the main path never launched {name}")
+        check(launches["bias_prelu"] == 0, "mobilenet_thin launched K6")
         for path in (WINDOWED, MULTISCALE, BATCH25):
             check(path_launches[path]["smooth_nms_topk"] > 0,
                   f"{path} never launched smooth_nms_topk")
@@ -1295,6 +1478,64 @@ def main() -> int:
             same_humans(g, w, f"{CMU_MAPS} result {i}")
         log("cmu-grid humans equal the CPU decode's (coords 1e-6, scores "
             "1e-4)")
+
+        # OpenPose BODY_25 (seeded random weights): the benchmark cell's
+        # path, inference_batch B=16 at 656x368 in bf16, then the fp32
+        # network on the card against the CPU, then the 25-part decode
+        # of planted maps against the CPU's
+        check(not os.path.exists(get_checkpoint_path("body25")),
+              "a body25 checkpoint would replace the seeded random weights")
+        t = time.perf_counter()
+        est_b25 = TfPoseEstimator("body25", target_size=(656, 368),
+                                  dtype="bfloat16")
+        b25_fp32 = TfPoseEstimator("body25", target_size=(656, 368))
+        cpu_b25 = TfPoseEstimator("body25", target_size=(656, 368),
+                                  device="cpu")
+        log(f"body25 estimators (seeded random weights) in "
+            f"{time.perf_counter() - t:.2f} s")
+        got25 = drive(B25_BATCH, lambda: est_b25.inference_batch(
+            frames656, upsample_size=4.0))
+        n25 = path_launches[B25_BATCH]
+        check(n25["bias_prelu"] == 99 and n25["smooth_nms_topk_raw"] == 1
+              and n25["assemble_dense"] == 1 and n25["smooth_nms"] == 0
+              and n25["smooth_nms_topk"] == 0,
+              f"{B25_BATCH}: launches {n25}, want K6 99 times (one "
+              f"forward) and K1 and K5 once")
+        log(f"humans with random weights ({B25_BATCH}): "
+            f"{[len(h) for h in got25]}")
+        with torch.inference_mode():
+            maps25 = b25_fp32._forward(np.stack(frames656[:2]), cmu_h, cmu_w)
+            t = time.perf_counter()
+            maps25_cpu = cpu_b25._forward(np.stack(frames656[:2]), cmu_h,
+                                          cmu_w)
+        scale25 = maps25_cpu.abs().max().item()
+        d25 = (maps25.cpu() - maps25_cpu).abs().max().item()
+        log(f"body25 fp32 concat_stage7 {tuple(maps25.shape)} on the card vs "
+            f"the CPU forward ({time.perf_counter() - t:.2f} s) of 2 frames: "
+            f"max |d| {d25:.3g}, {d25 / scale25:.3g} of max |map| "
+            f"{scale25:.3g} (tolerance 1e-4 of it)")
+        check(maps25.shape[-1] == 78 and scale25 > 0
+              and d25 <= 1e-4 * scale25, "body25 maps differ")
+        from tfpose_tpu_torch.core.topology import BODY25
+
+        net25 = torch.from_numpy(body25_scenes()).to(dev)
+        humans25 = drive(B25_MAPS, lambda: humans_of(
+            decode_batch(net25, 184, 328, params, BODY25), BODY25))
+        n25 = path_launches[B25_MAPS]
+        check(n25["smooth_nms_topk_raw"] == 1
+              and n25["score_candidates_raw"] == 1
+              and n25["assemble_dense"] == 1,
+              f"{B25_MAPS}: launches {n25}, want K1, K3 and K5 once")
+        log(f"humans per map, {B25_MAPS}: {[len(h) for h in humans25]}")
+        check(all(humans25), f"{B25_MAPS}: an image without humans")
+        humans25_cpu = humans_of(decode_batch(net25.cpu(), 184, 328, params,
+                                              BODY25), BODY25)
+        for i, (g, w) in enumerate(zip(humans25, humans25_cpu)):
+            check(all(h.skeleton is BODY25 and len(h.body_parts) <= 25
+                      for h in g), f"{B25_MAPS} image {i}: not BODY_25")
+            same_humans(g, w, f"{B25_MAPS} image {i}")
+        log("body25 planted humans equal the CPU decode's (coords 1e-6, "
+            "scores 1e-4)")
         launches = {name: sum(n[name] for n in path_launches.values())
                     for name in wrappers}
         log(f"launch counts over every path: {launches}")
@@ -1419,6 +1660,35 @@ def main() -> int:
              k5_cost(args[0][0], args[1]))
             for what, args in k5_in.items()]
 
+        # K6 at BODY_25's B=16 grid in bf16, as its forward calls it:
+        # bytes, its values read once and written once per destination,
+        # and the bias and slopes; 2 operations a value. Its library
+        # yardstick is the eager way: the bias add, F.prelu and the copy
+        # into the destinations
+        def k6_cost(y, outs):
+            return (y.numel() * y.element_size() * (1 + len(outs))
+                    + 2 * y.shape[1] * 4, 2 * y.numel())
+
+        def k6_eager(y, bias, alpha, outs):
+            r = torch.nn.functional.prelu(y + bias.to(y.dtype)[:, None, None],
+                                          alpha.to(y.dtype))
+            for out in outs:
+                out.copy_(r)
+
+        k6_cases, library = [], {}
+        for c, writes in ((96, "block"), (128, "block"), (128, "slice"),
+                          (512, "whole")):
+            y, bias, alpha, outs, _ = k6_inputs(c, torch.bfloat16, dev,
+                                                writes, seed=c)
+            what = (f"B=16 C={c} (46, 82) bf16 {writes}, "
+                    f"{len(outs)} write{'s' * (len(outs) > 1)}")
+            args = (y, bias, alpha, outs)
+            k6_cases.append(("bias_prelu", what,
+                             lambda a=args: bias_prelu(*a),
+                             lambda a=args: bias_prelu_plain(*a),
+                             k6_cost(y, outs)))
+            library[("bias_prelu", what)] = lambda a=args: k6_eager(*a)
+
         # (kernel, shape, kernel call, plain call, (bytes, ops)); a
         # kernel's first case is the one its JSON entry reports
         cases = [
@@ -1451,7 +1721,7 @@ def main() -> int:
             ("smooth_nms_topk", f"{tuple(x25.shape)} K=32",
              lambda: smooth_nms_topk(x25, 32, 0.05),
              lambda: smooth_nms_topk_plain(x25, 32, 0.05), k4_cost(x25)),
-        ] + new_cases + k5_cases
+        ] + new_cases + k5_cases + k6_cases
         sources = {
             "smooth_nms_topk_raw": ("tfpose_tpu_torch/csrc/smooth_nms_topk_raw.cu",
                                     "tfpose_tpu/ops/pallas/smooth_nms.py:371"),
@@ -1464,12 +1734,15 @@ def main() -> int:
             "assemble_dense": ("tfpose_tpu_torch/csrc/assemble.cu",
                                "none (tfpose_tpu/ops/assemble.py:"
                                "assemble_dense is jnp code)"),
+            "bias_prelu": ("tfpose_tpu_torch/csrc/bias_prelu.cu",
+                           "none (the JAX package has no BODY_25 network)"),
         }
         ours = {"smooth_nms_topk_raw": ("phase_peaks_kernel", "select_kernel"),
                 "smooth_nms": ("smooth_nms_kernel",),
                 "score_candidates_raw": ("score_candidates_kernel",),
                 "smooth_nms_topk": ("blur_peaks_kernel", "select_kernel"),
-                "assemble_dense": ("assemble_kernel",)}
+                "assemble_dense": ("assemble_kernel",),
+                "bias_prelu": ("bias_prelu_vec",)}
 
         def device_ms(name, rows):
             """Device ms per launch of ``name``'s own kernels in a
@@ -1495,14 +1768,17 @@ def main() -> int:
                 time.sleep(0.5)
             check(dms is not None, f"no device time for {name} {shape}")
             bms, by = bound_ms(nbytes, ops)
+            lib = library.get((name, shape))
+            lmed = time_cuda(lib)[0] if lib is not None else None
             log(f"time {name} {shape}: kernel median {med:.5f} ms p90 "
                 f"{p90:.5f} ms | device {dms:.5f} ms per launch "
                 f"({' + '.join(f'{t:.5f}' for t in per)}) | plain median "
-                f"{pmed:.5f} ms p90 {pp90:.5f} ms | bound {bms:.6f} ms "
-                f"({by}: {nbytes} B, {ops} op) {tag}")
+                f"{pmed:.5f} ms p90 {pp90:.5f} ms"
+                + (f" | library median {lmed:.5f} ms" if lib else "")
+                + f" | bound {bms:.6f} ms ({by}: {nbytes} B, {ops} op) {tag}")
             case = {"shape": shape, "ms": med, "p90_ms": p90,
-                    "device_ms": dms, "plain_ms": pmed, "bound_ms": bms,
-                    "bound_by": by}
+                    "device_ms": dms, "plain_ms": pmed, "library_ms": lmed,
+                    "bound_ms": bms, "bound_by": by}
             if name not in kernels:
                 kernels[name] = {
                     "name": name, "route": "cuda", "source": sources[name][0],
@@ -1510,7 +1786,7 @@ def main() -> int:
                     "launches_by_path": {path: n[name] for path, n in
                                          path_launches.items()},
                     "max_abs_err": err[name], "ms": med, "plain_ms": pmed,
-                    "bound_ms": bms, "bound_by": by, "library_ms": None,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lmed,
                     "cases": []}
             kernels[name]["cases"].append(case)
         kernels = list(kernels.values())
@@ -1528,6 +1804,9 @@ def main() -> int:
              lambda: est_cmu.inference(frames656[0], upsample_size=4.0), 1),
             ("cmu inference_batch B=16 (656x368, upsample 4)",
              lambda: est_cmu.inference_batch(frames656, upsample_size=4.0),
+             16),
+            ("body25 inference_batch B=16 (656x368, bf16, upsample 4)",
+             lambda: est_b25.inference_batch(frames656, upsample_size=4.0),
              16)]
         for what, fn in [
                 ("inference", lambda: est.inference(imgs[0],
@@ -1548,8 +1827,11 @@ def main() -> int:
             for name in ours:
                 dms, per = device_ms(name, rows)
                 if dms is not None:
+                    first = next(r for r in rows if ours[name][0] in r[0])
                     log(f"  device time of {name}: {dms:.5f} ms per "
-                        f"launch ({' + '.join(f'{t:.5f}' for t in per)})")
+                        f"launch ({' + '.join(f'{t:.5f}' for t in per)}), "
+                        f"{first[2]:.0f} launches and {dms * first[2]:.4f} "
+                        f"ms a call")
 
         med, p90 = time_host(lambda: est.inference(imgs[0],
                                                    upsample_size=4.0), 20)
@@ -2425,13 +2707,13 @@ def main() -> int:
             if max_batch == 1:
                 check(n == {"smooth_nms_topk_raw": 0, "smooth_nms": 8,
                             "score_candidates_raw": 0, "smooth_nms_topk": 0,
-                            "assemble_dense": 8},
+                            "assemble_dense": 8, "bias_prelu": 0},
                       f"{path}: launches {n}, want K2 and K5 8 each only")
             else:
                 check(flushes >= 1 and n == {
                     "smooth_nms_topk_raw": flushes, "smooth_nms": 0,
                     "score_candidates_raw": flushes, "smooth_nms_topk": 0,
-                    "assemble_dense": flushes},
+                    "assemble_dense": flushes, "bias_prelu": 0},
                     f"{path}: launches {n}, want K1, K3 and K5 once per "
                     f"flush ({flushes})")
             for i, ((humans, img), w) in enumerate(zip(got, want)):

@@ -52,7 +52,11 @@ def _state_shapes_from_flax(name):
     return out
 
 
-@pytest.mark.parametrize("name", MODEL_NAMES + ("vgg",))
+# BODY_25 is the port's own network (the JAX package has none): its
+# state dict is held to the benchmark reference's tree in
+# tests/test_torch_body25.py
+@pytest.mark.parametrize("name", tuple(
+    n for n in MODEL_NAMES if n != "body25") + ("vgg",))
 def test_registry_builds_every_model_like_jax(name):
     """Every registry name builds, with the JAX network's parameters and
     BN statistics, name for name and shape for shape."""

@@ -30,6 +30,7 @@ from tfpose_tpu_torch.core.topology import pairs_array
 from tfpose_tpu_torch.ops import nms
 from tfpose_tpu_torch.ops.assemble import ASSEMBLE_ARGTYPES
 from tfpose_tpu_torch.ops.kernels import build
+from tfpose_tpu_torch.ops.kernels.bias_prelu import BIAS_PRELU_ARGTYPES
 from tfpose_tpu_torch.ops.kernels.paf_score import (
     MAX_STEPS,
     SCORE_ARGTYPES,
@@ -485,7 +486,7 @@ def test_build_dir_hashes_sources_and_finds_all_kernels():
     assert d.startswith(build.BUILD_ROOT) and d == build.build_dir()
     assert {n[:-3] for n in build._sources() if n.endswith(".cu")} == {
         "smooth_nms", "smooth_nms_topk_raw", "smooth_nms_topk", "paf_score",
-        "assemble"}
+        "assemble", "bias_prelu"}
 
 
 def test_build_dir_hashes_the_shared_header():
@@ -504,7 +505,8 @@ def test_build_dir_hashes_the_shared_header():
     ("smooth_nms_topk", "smooth_nms_topk_launch", TOPK_ARGTYPES),
     ("smooth_nms", "smooth_nms_launch", SMOOTH_NMS_ARGTYPES),
     ("paf_score", "score_candidates_raw_launch", SCORE_ARGTYPES),
-    ("assemble", "assemble_launch", ASSEMBLE_ARGTYPES)])
+    ("assemble", "assemble_launch", ASSEMBLE_ARGTYPES),
+    ("bias_prelu", "bias_prelu_launch", BIAS_PRELU_ARGTYPES)])
 def test_launcher_argtypes_match_the_c_signature(stem, symbol, argtypes):
     """ctypes passes what the wrapper declares: the declared types must
     follow the C launch function's parameters one for one (pointers,

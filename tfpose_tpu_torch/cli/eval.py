@@ -35,6 +35,7 @@ from tfpose_tpu_torch.cli.common import (
     setup_logging,
 )
 from tfpose_tpu_torch.core.config import DecodeParams
+from tfpose_tpu_torch.core.types import PoseArrays
 from tfpose_tpu_torch.estimator import TfPoseEstimator
 from tfpose_tpu_torch.evaluation.coco_eval import (
     evaluate_oks_ap,
@@ -114,8 +115,8 @@ def eval_synthetic(args):
         pafm = synthetic.render_paf(people, h, w)
         net = np.concatenate([heat, pafm], axis=2).astype(np.float32)
         out = decode(torch.from_numpy(net).to(device), up_h, up_w, params)
-        humans = TfPoseEstimator._humans(
-            Assembled(*(t.cpu().numpy() for t in out)))
+        humans = PoseArrays.of(
+            Assembled(*(t.cpu().numpy() for t in out))).to_humans()
         dets.extend(humans_to_detections(humans, idx, up_w, up_h))
         # ground truth in the upsampled coordinates
         gts[idx] = [person_to_gt(person * 4) for person in people]

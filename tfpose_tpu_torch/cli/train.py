@@ -273,13 +273,16 @@ def train(args, mesh=None):
     this rank of ``mesh``. Returns the final train state."""
     from tfpose_tpu_torch.convert.checkpoint import (
         save_flax_msgpack, variables_to_numpy)
-    from tfpose_tpu_torch.models import get_network, model_wh
+    from tfpose_tpu_torch.core.topology import require_coco18
+    from tfpose_tpu_torch.models import get_network, model_wh, skeleton_of
     from tfpose_tpu_torch.models.layers import init_weights
     from tfpose_tpu_torch.parallel.mesh import (
         assert_replicas_equal, broadcast_batch, replicated)
     from tfpose_tpu_torch.train.state import (
         TrainState, make_optimizer, make_train_step, replica_tensors)
 
+    # the data, targets and loss are COCO-18's (BODY_25 needs 25-part labels)
+    require_coco18(skeleton_of(args.model), "training")
     chief = mesh is None or mesh.rank == 0
     device = mesh.device if mesh else torch.device(args.device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():

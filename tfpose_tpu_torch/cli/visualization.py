@@ -19,6 +19,7 @@ from typing import List, Tuple
 import numpy as np
 
 from tfpose_tpu_torch.cli.common import setup_logging
+from tfpose_tpu_torch.core.topology import skeleton_named
 from tfpose_tpu_torch.core.types import BodyPart, Human
 from tfpose_tpu_torch.serving import PoseClient, Persons
 from tfpose_tpu_torch.utils.draw import draw_humans
@@ -27,14 +28,16 @@ logger = logging.getLogger("visualization")
 
 
 def msg_to_humans(msg: Persons) -> List[Human]:
-    """``Persons`` -> ``Human`` list, part ids ``f"{person}-{part}"``."""
+    """``Persons`` -> ``Human`` list of the message's skeleton, part ids
+    ``f"{person}-{part}"``."""
+    sk = skeleton_named(msg.skeleton)
     humans = []
     for pi, person in enumerate(msg.persons):
-        h = Human()
+        h = Human(skeleton=sk)
         for bp in person.body_part:
             h.body_parts[bp.part_id] = BodyPart(
                 f"{pi}-{bp.part_id}", bp.part_id, bp.x, bp.y,
-                bp.confidence)
+                bp.confidence, sk)
         humans.append(h)
     return humans
 

@@ -147,6 +147,7 @@ _LEAF_NAMES = {
     ("params", "kernel"): "weight",
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
+    ("params", "alpha"): "weight",   # a PReLU's slopes (BODY_25)
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
     ("quant", "in_absmax"): "in_absmax",
@@ -230,6 +231,8 @@ def variables_to_numpy(net: nn.Module) -> Dict[str, Any]:
             put("params", path, "bias", mod.bias)
             put("batch_stats", path, "mean", mod.running_mean)
             put("batch_stats", path, "var", mod.running_var)
+        elif isinstance(mod, nn.PReLU):
+            put("params", path, "alpha", mod.weight)
         else:
             continue
         covered.update(f"{name}.{k}" for k, _ in mod.named_parameters(

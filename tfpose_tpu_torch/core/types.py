@@ -8,7 +8,9 @@ Mirrors the reference API surface in ``tf_pose/estimator.py:~30-160``
 (``Human``, ``BodyPart`` with normalized coords and per-part scores,
 ``get_face_box`` / ``get_upper_body_box``), but the on-device result is a
 padded pytree with static shapes — Python objects are only materialised
-host-side at the very end.
+host-side at the very end. A ``Human`` and its ``BodyPart``s carry their
+skeleton (``core/topology.py``: COCO-18 by default, or BODY_25), which
+names their parts and places the face and torso parts the boxes read.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from tfpose_tpu_torch.core.topology import NUM_PARTS, CocoPart
+from tfpose_tpu_torch.core.topology import COCO18, Skeleton
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,9 +32,12 @@ class BodyPart:
     x: float
     y: float
     score: float
+    skeleton: Skeleton = dataclasses.field(default=COCO18, compare=False)
 
-    def get_part_name(self) -> CocoPart:
-        return CocoPart(self.part_idx)
+    def get_part_name(self):
+        """The part as its skeleton's enum member (``CocoPart``,
+        ``Body25Part``)."""
+        return self.skeleton.part(self.part_idx)
 
     def __repr__(self) -> str:
         return "BodyPart:%d-(%.2f, %.2f) score=%.2f" % (
@@ -40,15 +45,17 @@ class BodyPart:
 
 
 class Human:
-    """A detected person: dict of BodyPart keyed by part index, plus score."""
+    """A detected person: dict of BodyPart keyed by part index, plus score,
+    of ``skeleton``'s parts."""
 
-    __slots__ = ("body_parts", "pairs", "uidx_list", "score")
+    __slots__ = ("body_parts", "pairs", "uidx_list", "score", "skeleton")
 
-    def __init__(self, pairs=()):
+    def __init__(self, pairs=(), skeleton: Skeleton = COCO18):
         self.pairs = list(pairs)
         self.uidx_list = set()
         self.body_parts: Dict[int, BodyPart] = {}
         self.score = 0.0
+        self.skeleton = skeleton
 
     def part_count(self) -> int:
         return len(self.body_parts)
@@ -58,10 +65,10 @@ class Human:
 
     def get_face_box(self, img_w: int, img_h: int, mode: int = 0) -> Optional[dict]:
         """Bounding box of the face, reference ``Human.get_face_box`` semantics."""
-        _NOSE = CocoPart.Nose.value
-        _NECK = CocoPart.Neck.value
-        _REye, _LEye = CocoPart.REye.value, CocoPart.LEye.value
-        _REar, _LEar = CocoPart.REar.value, CocoPart.LEar.value
+        part = self.skeleton.index
+        _NOSE, _NECK = part("Nose"), part("Neck")
+        _REye, _LEye = part("REye"), part("LEye")
+        _REar, _LEar = part("REar"), part("LEar")
 
         if _NOSE not in self.body_parts:
             return None
@@ -97,10 +104,11 @@ class Human:
         the 8 torso/head parts incl. both shoulders)."""
         if not (img_w > 0 and img_h > 0):
             raise Exception("img size should be positive")
-        _NOSE, _NECK = CocoPart.Nose.value, CocoPart.Neck.value
-        _RSHO, _LSHO = CocoPart.RShoulder.value, CocoPart.LShoulder.value
-        _RHIP, _LHIP = CocoPart.RHip.value, CocoPart.LHip.value
-        _REye, _LEye = CocoPart.REye.value, CocoPart.LEye.value
+        part = self.skeleton.index
+        _NOSE, _NECK = part("Nose"), part("Neck")
+        _RSHO, _LSHO = part("RShoulder"), part("LShoulder")
+        _RHIP, _LHIP = part("RHip"), part("LHip")
+        _REye, _LEye = part("REye"), part("LEye")
         part_coords = [
             (img_w * self.body_parts[i].x, img_h * self.body_parts[i].y)
             for i in (_NOSE, _NECK, _RSHO, _LSHO, _RHIP, _LHIP)
@@ -137,14 +145,15 @@ class PoseArrays:
     """Fixed-shape decode output (device-friendly, padded).
 
     Attributes:
-      coords: (max_humans, 18, 2) float32, (x, y) normalized to [0, 1] in
-        heatmap space (x = peak_x / W, y = peak_y / H) — matching the
+      coords: (max_humans, parts, 2) float32, (x, y) normalized to [0, 1]
+        in heatmap space (x = peak_x / W, y = peak_y / H) — matching the
         reference ``PoseEstimator.estimate_paf`` normalisation.
-      scores: (max_humans, 18) float32 per-part heatmap scores.
-      part_valid: (max_humans, 18) bool.
+      scores: (max_humans, parts) float32 per-part heatmap scores.
+      part_valid: (max_humans, parts) bool.
       human_scores: (max_humans,) float32 — mean connection score per human
         (reference ``get_score`` semantics).
       human_valid: (max_humans,) bool.
+      skeleton: the parts' skeleton (COCO-18 by default).
     """
 
     coords: np.ndarray
@@ -152,9 +161,20 @@ class PoseArrays:
     part_valid: np.ndarray
     human_scores: np.ndarray
     human_valid: np.ndarray
+    skeleton: Skeleton = COCO18
+
+    @classmethod
+    def of(cls, arrays, skeleton: Skeleton = COCO18) -> "PoseArrays":
+        """One image's decoded arrays (``ops/assemble.py:Assembled``) as
+        the parts of ``skeleton``."""
+        return cls(coords=arrays.coords, scores=arrays.part_scores,
+                   part_valid=arrays.part_valid,
+                   human_scores=arrays.human_scores,
+                   human_valid=arrays.human_valid, skeleton=skeleton)
 
     def to_humans(self) -> List[Human]:
         """Materialise Python Human objects (host-side, reference-compatible)."""
+        sk = self.skeleton
         coords = np.asarray(self.coords)
         scores = np.asarray(self.scores)
         part_valid = np.asarray(self.part_valid)
@@ -164,15 +184,15 @@ class PoseArrays:
         for h in range(coords.shape[0]):
             if not hvalid[h]:
                 continue
-            human = Human()
-            for p in range(NUM_PARTS):
+            human = Human(skeleton=sk)
+            for p in range(sk.num_parts):
                 if not part_valid[h, p]:
                     continue
                 uidx = "%d-%d" % (h, p)
                 human.body_parts[p] = BodyPart(
                     uidx, p,
                     float(coords[h, p, 0]), float(coords[h, p, 1]),
-                    float(scores[h, p]))
+                    float(scores[h, p]), sk)
                 human.uidx_list.add(uidx)
             human.score = float(hscores[h])
             if human.body_parts:

@@ -7,15 +7,19 @@
 // a few KB, so the host's launch overhead, not the card, set its time. This
 // kernel does the same steps for one image per block, every per-node array
 // in shared memory:
-//   1. min-label propagation over the accepted connections of pairs
-//      0..n_tree-1 (nodes are parts x K slots): Jacobi rounds (labels of
+//   1. min-label propagation over the accepted connections of the tree
+//      pairs, all but the two redundant pairs r0 and r0 + 1 (nodes are
+//      parts x K slots): Jacobi rounds (labels of
 //      both ends lowered to the min of the pair's labels as they stood at
 //      the round's start), each followed by a path compression; at most
 //      label_iters rounds, fewer where a round changes nothing (a fixed
 //      point), then one more compression;
 //   2. per-root state: used nodes, part presence as a bit mask, creation
 //      order (lowest edge index), and the ear owners of the two redundant
-//      pairs (highest node index);
+//      pairs (highest node index); presence and owners count only the
+//      nodes of pairs before r0, the rows the reference's sequential loop
+//      holds when it reaches the redundant pairs (a tree pair after them,
+//      such as BODY_25's foot limbs, only hangs new parts on a row);
 //   3. the redundant pairs' connections walked slot by slot in the
 //      reference's sequential order: fuse two rows with disjoint parts
 //      (relabel to the lower root, merge the root state), or attach the ear
@@ -98,7 +102,9 @@ __device__ __forceinline__ T* at(char* base, size_t off) {
   return reinterpret_cast<T*>(base + off);
 }
 
-constexpr unsigned char kValid = 1, kTree = 2;
+constexpr unsigned char kValid = 1, kTree = 2, kBefore = 4;
+// used[i]: the node is in a tree connection; and in one before r0
+constexpr unsigned char kUsed = 1, kUsedBefore = 2;
 
 __global__ void __launch_bounds__(kMaxThreads)
 assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
@@ -108,7 +114,7 @@ assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
                 float* __restrict__ coords, float* __restrict__ part_scores,
                 unsigned char* __restrict__ part_valid, float* __restrict__ human_scores,
                 unsigned char* __restrict__ human_valid, unsigned char* __restrict__ saturated,
-                const __grid_constant__ Topology topo, int parts, int P, int n_tree, int K,
+                const __grid_constant__ Topology topo, int parts, int P, int r0, int K,
                 int max_h, int label_iters, int thresh_cnt, float thresh_score, int normalise,
                 float sx, float sy) {
   extern __shared__ __align__(16) char smem[];
@@ -137,7 +143,7 @@ assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
   unsigned char* eflag = at<unsigned char>(smem, L.eflag);
   unsigned char* used = at<unsigned char>(smem, L.used);
   const size_t node0 = static_cast<size_t>(b) * n, edge0 = static_cast<size_t>(b) * ne;
-  const int ear_part[2] = {topo.part_b[n_tree], topo.part_b[n_tree + 1]};
+  const int ear_part[2] = {topo.part_b[r0], topo.part_b[r0 + 1]};
 
   // ---- 0. load; per-root state at its initial values
   for (int i = tid; i < n; i += T) {
@@ -159,7 +165,8 @@ assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
     eb[e] = topo.part_b[p] * K + min(max(cb[edge0 + e], 0), K - 1);
     es[e] = cscore[edge0 + e];
     const bool v = cvalid[edge0 + e] != 0;
-    eflag[e] = (v ? kValid : 0) | (v && p < n_tree ? kTree : 0);
+    const bool tree = p != r0 && p != r0 + 1;
+    eflag[e] = (v ? kValid : 0) | (v && tree ? kTree : 0) | (v && p < r0 ? kBefore : 0);
   }
   for (int h = tid; h < max_h; h += T) {
     root_of_h[h] = -1;
@@ -200,12 +207,15 @@ assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
   __syncthreads();
   for (int i = tid; i < n; i += T) labels[i] = tmp[i];
   for (int e = tid; e < ne; e += T)
-    if (eflag[e] & kTree) used[ea[e]] = used[eb[e]] = 1;
+    if (eflag[e] & kTree) used[ea[e]] = used[eb[e]] = kUsed;
+  __syncthreads();
+  for (int e = tid; e < ne; e += T)
+    if (eflag[e] & kBefore) used[ea[e]] = used[eb[e]] = kUsed | kUsedBefore;
   __syncthreads();
 
   // ---- 2. per-root state (values live at root node positions)
   for (int i = tid; i < n; i += T) {
-    if (!used[i]) continue;
+    if (!(used[i] & kUsedBefore)) continue;
     const int p = i / K, r = labels[i];
     atomicOr(&pres[r], 1u << p);
     for (int q = 0; q < 2; ++q)
@@ -219,7 +229,7 @@ assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
   // takes the same decision from shared state; thread 0 updates the
   // per-root state, all threads relabel a fused row.
   for (int q = 0; q < 2; ++q) {
-    const int pair = n_tree + q;
+    const int pair = r0 + q;
     const unsigned ear_bit = 1u << ear_part[q];
     int* o_this = own[q];
     int* o_other = own[1 - q];
@@ -231,7 +241,7 @@ assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
         if (o_this[r] == bn) atomicMax(&s_rb, r);
       __syncthreads();
       const int rb_raw = s_rb;
-      const bool has_b = rb_raw >= 0, in_a = used[a] != 0;
+      const bool has_b = rb_raw >= 0, in_a = (used[a] & kUsedBefore) != 0;
       const int ra = labels[a], rb = has_b ? rb_raw : 0;
       const unsigned pres_a = pres[ra], pres_b = has_b ? pres[rb] : 0u;
       const bool differ = in_a && has_b && ra != rb;
@@ -272,9 +282,10 @@ assemble_kernel(const int* __restrict__ px, const int* __restrict__ py,
   for (int e = tid; e < ne; e += T)
     if (eflag[e] & kTree) atomicAdd(&sum[labels[ea[e]]], static_cast<double>(es[e]));
   for (int i = tid; i < n; i += T) {
-    const float v = __fadd_rn(used[i] ? score[i] : 0.0f, bon_s[i]);
+    const int u = used[i] & kUsed;
+    const float v = __fadd_rn(u ? score[i] : 0.0f, bon_s[i]);
     if (v != 0.0f) atomicAdd(&sum[labels[i]], static_cast<double>(v));
-    const int c = used[i] + bon_c[i];
+    const int c = u + bon_c[i];
     if (c) atomicAdd(&count[labels[i]], c);
   }
   __syncthreads();
@@ -401,18 +412,20 @@ extern "C" const char* tfpose_error_string(int code) {
 // part_scores (B, max_h, parts) fp32, part_valid bool, human_scores
 // (B, max_h) fp32, human_valid bool, saturated (B, parts) bool; all
 // contiguous on the device. pairs_host: (P, 2) int32 on the host, each
-// pair's parts; pairs 0..P-3 span the tree, P-2 and P-1 are the redundant
-// ear pairs. Returns cudaGetLastError() after the launch.
+// pair's parts; r0 and r0 + 1 are the redundant ear pairs, the others span
+// the tree (grown in order, core/topology.py:Skeleton). Returns
+// cudaGetLastError() after the launch.
 extern "C" int assemble_launch(const int* x, const int* y, const float* score,
                                const unsigned char* valid, const int* a_slot, const int* b_slot,
                                const float* c_score, const unsigned char* c_valid, float* coords,
                                float* part_scores, unsigned char* part_valid, float* human_scores,
                                unsigned char* human_valid, unsigned char* saturated,
-                               const int* pairs_host, int B, int parts, int P, int K, int max_h,
+                               const int* pairs_host, int B, int parts, int P, int r0, int K,
+                               int max_h,
                                int label_iters, int thresh_cnt, float thresh_score, int normalise,
                                float sx, float sy, void* stream) {
-  if (B < 0 || parts < 1 || parts > kMaxParts || P < 3 || P > kMaxPairs || K < 1 ||
-      K > kMaxK || max_h < 0 || label_iters < 0)
+  if (B < 0 || parts < 1 || parts > kMaxParts || P < 3 || P > kMaxPairs || r0 < 1 ||
+      r0 + 1 >= P || K < 1 || K > kMaxK || max_h < 0 || label_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Topology topo = {};
   for (int i = 0; i < P; ++i) {
@@ -433,7 +446,7 @@ extern "C" int assemble_launch(const int* x, const int* y, const float* score,
   }
   assemble_kernel<<<B, threads, bytes, static_cast<cudaStream_t>(stream)>>>(
       x, y, score, valid, a_slot, b_slot, c_score, c_valid, coords, part_scores, part_valid,
-      human_scores, human_valid, saturated, topo, parts, P, P - 2, K, max_h, label_iters,
+      human_scores, human_valid, saturated, topo, parts, P, r0, K, max_h, label_iters,
       thresh_cnt, thresh_score, normalise, sx, sy);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,11 @@ from tfpose_tpu_torch.convert.checkpoint import (
 )
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.core.types import BodyPart, Human, PoseArrays
-from tfpose_tpu_torch.models import get_checkpoint_path, get_network
+from tfpose_tpu_torch.models import (
+    get_checkpoint_path,
+    get_network,
+    skeleton_of,
+)
 from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.models.quantize import (
     default_calibration_images,
@@ -68,7 +72,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def run_backbone(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
     """Normalized (N, H, W, 3) on the device -> ``net``'s concat_stage7
-    (N, H/8, W/8, 57) as fp32, under inference mode with cuDNN's TF32
+    (N, H/8, W/8, C) as fp32, under inference mode with cuDNN's TF32
     off: an fp32 network computes in true fp32, a bf16 one casts its
     input to bf16 itself and its maps come back cast to fp32."""
     cudnn = torch.backends.cudnn
@@ -112,7 +116,9 @@ class TfPoseEstimator:
 
     Args:
       model: a registry name: 'mobilenet_thin', 'mobilenet',
-        'mobilenet_v2_large', 'mobilenet_v2_small', 'cmu' (or 'vgg').
+        'mobilenet_v2_large', 'mobilenet_v2_small', 'cmu' (or 'vgg'), or
+        'body25' (OpenPose BODY_25, whose humans have its 25 parts; the
+        others' have COCO's 18). ``self.skeleton`` is the model's.
       target_size: (w, h) network input size.
       decode_params: static decode thresholds/caps.
       dtype: backbone compute type, ``"float32"`` or ``"bfloat16"``.
@@ -152,6 +158,7 @@ class TfPoseEstimator:
                 "TfPoseEstimator runs on a CUDA card by default and none is "
                 "available; pass device='cpu' to run on the CPU")
         self.model_name = model
+        self.skeleton = skeleton_of(model)
         self.device_preprocess = device_preprocess
         self.target_size = target_size
         self.decode_params = decode_params
@@ -176,8 +183,8 @@ class TfPoseEstimator:
 
         self.heatMat: Optional[np.ndarray] = None
         self.pafMat: Optional[np.ndarray] = None
-        # (18,) or (B, 18) bool after each inference: parts whose top-K
-        # peak cap filled up (the reference's peak scan is unbounded)
+        # (parts,) or (B, parts) bool after each inference: parts whose
+        # top-K peak cap filled up (the reference's peak scan is unbounded)
         self.last_peak_saturated: Optional[np.ndarray] = None
         self._warned_saturation = False
 
@@ -193,7 +200,7 @@ class TfPoseEstimator:
     # ------------------------------------------------------------------
     def _forward(self, imgs: np.ndarray, net_h: int, net_w: int,
                  bilinear: bool = False) -> torch.Tensor:
-        """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, 57) fp32;
+        """uint8 (N, H, W, 3) -> concat_stage7 (N, H/8, W/8, C) fp32;
         ``bilinear`` resizes as :func:`prepare_bilinear` does."""
         with span("model.upload"):
             x = torch.as_tensor(np.ascontiguousarray(imgs),
@@ -230,8 +237,8 @@ class TfPoseEstimator:
         return True
 
     def _note_saturation(self, sat: np.ndarray) -> None:
-        """Record + warn (once) on peak-cap saturation; ``sat`` is (18,)
-        for single images or (B, 18) for batches."""
+        """Record + warn (once) on peak-cap saturation; ``sat`` is (parts,)
+        for single images or (B, parts) for batches."""
         self.last_peak_saturated = sat
         if sat.any() and not self._warned_saturation:
             parts = np.where(sat.reshape(-1, sat.shape[-1]).any(0))[0]
@@ -258,18 +265,19 @@ class TfPoseEstimator:
 
     def _decode_merged(self, merged: torch.Tensor,
                        upsample_size: float) -> List[Human]:
-        """Decode a merged (H/8, W/8, 57) map at ``upsample_size``."""
+        """Decode a merged (H/8, W/8, C) map at ``upsample_size``."""
         up_h = int(merged.shape[0] * float(upsample_size))
         up_w = int(merged.shape[1] * float(upsample_size))
-        return self._humans(self._decode_escalating(
-            lambda p: decode(merged, up_h, up_w, p)))
+        return self._humans(PoseArrays.of(self._decode_escalating(
+            lambda p: decode(merged, up_h, up_w, p, self.skeleton)),
+            self.skeleton))
 
     @staticmethod
-    def _humans(arrays: Assembled) -> List[Human]:
-        return PoseArrays(
-            coords=arrays.coords, scores=arrays.part_scores,
-            part_valid=arrays.part_valid, human_scores=arrays.human_scores,
-            human_valid=arrays.human_valid).to_humans()
+    def _humans(arrays: PoseArrays) -> List[Human]:
+        """The one place where a path's humans are made: one image's
+        decoded arrays, labelled with the estimator's skeleton by the
+        caller (``PoseArrays.of(arrays, self.skeleton)``)."""
+        return arrays.to_humans()
 
     # ------------------------------------------------------------------
     # public API (reference signatures)
@@ -298,14 +306,14 @@ class TfPoseEstimator:
             net_out = self._forward(npimg[None], net_h, net_w,
                                     self.device_preprocess)[0]
             peaks_map, heat_up, paf_up = postprocess(
-                net_out, up_h, up_w, self.decode_params)
+                net_out, up_h, up_w, self.decode_params, self.skeleton)
             arrays = self._decode_escalating(
-                lambda p: decode_maps(peaks_map, paf_up, p))
+                lambda p: decode_maps(peaks_map, paf_up, p, self.skeleton))
             with span("api.maps"):
                 self.heatMat = heat_up.cpu().numpy()
                 self.pafMat = paf_up.cpu().numpy()
             with span("api.humans"):
-                return self._humans(arrays)
+                return self._humans(PoseArrays.of(arrays, self.skeleton))
 
     def inference_batch(self, npimgs: Sequence[np.ndarray],
                         upsample_size: float = 1.0) -> List[List[Human]]:
@@ -323,9 +331,10 @@ class TfPoseEstimator:
             # on saturation the whole batch is decoded again: below-cap
             # images decode identically at larger K
             arrays = self._decode_escalating(
-                lambda p: decode_batch(net_out, up_h, up_w, p))
+                lambda p: decode_batch(net_out, up_h, up_w, p, self.skeleton))
             with span("api.humans"):
-                return [self._humans(Assembled(*(a[i] for a in arrays)))
+                return [self._humans(PoseArrays.of(
+                    Assembled(*(a[i] for a in arrays)), self.skeleton))
                         for i in range(len(npimgs))]
 
     def inference_windowed(self, npimg: np.ndarray,
@@ -387,5 +396,5 @@ class TfPoseEstimator:
         img = np.zeros((1, h, w, 3), np.uint8)
         with FlopCounterMode(display=False) as counter:
             net_out = self._forward(img, h, w)[0]
-            decode(net_out, up_h, up_w, self.decode_params)
+            decode(net_out, up_h, up_w, self.decode_params, self.skeleton)
         return int(counter.get_total_flops())

@@ -17,7 +17,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from tfpose_tpu_torch.core.topology import COCO17_FROM_MODEL18
+from tfpose_tpu_torch.core.topology import (
+    COCO17_FROM_MODEL18,
+    require_coco18,
+)
 from tfpose_tpu_torch.core.types import Human
 from tfpose_tpu_torch.utils import synthetic
 
@@ -28,7 +31,9 @@ OKS_SIGMAS = np.array([
 
 
 def write_coco_json(human: Human, image_w: int, image_h: int) -> List[float]:
-    """Human -> 51-float COCO keypoint triplets (reference function)."""
+    """Human -> 51-float COCO keypoint triplets (reference function); a
+    COCO-18 human only (the 17 keypoints are mapped from its parts)."""
+    require_coco18(human.skeleton, "COCO keypoint evaluation")
     keypoints = []
     for coco_id in range(17):
         part = int(COCO17_FROM_MODEL18[coco_id])

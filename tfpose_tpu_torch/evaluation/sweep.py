@@ -30,13 +30,14 @@ from tfpose_tpu_torch.convert.checkpoint import (
     variables_from_numpy,
 )
 from tfpose_tpu_torch.core.config import DecodeParams
+from tfpose_tpu_torch.core.topology import require_coco18
 from tfpose_tpu_torch.core.types import PoseArrays
 from tfpose_tpu_torch.estimator import _DTYPES, run_backbone
 from tfpose_tpu_torch.evaluation.coco_eval import (
     evaluate_oks_ap,
     humans_to_detections,
 )
-from tfpose_tpu_torch.models import get_network
+from tfpose_tpu_torch.models import get_network, skeleton_of
 from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.ops.assemble import Assembled
 from tfpose_tpu_torch.ops.decode import decode_batch
@@ -92,13 +93,14 @@ class BatchedEvaluator:
         self.w, self.h = target_size
         self.batch = batch_size
         self.net = get_network(model, _DTYPES[dtype])
+        self.skeleton = skeleton_of(model)
         init_weights(self.net, torch.Generator().manual_seed(0))
         self.net.eval().to(self.device)
         if mesh is not None:
             replicated(mesh, self.net)
         self.up = (int(self.h / 8 * upsample), int(self.w / 8 * upsample))
         self.decode_params = params
-        # (B, 18) bool after each run_batch: peak-cap saturation per
+        # (B, parts) bool after each run_batch: peak-cap saturation per
         # image (same surfacing contract as TfPoseEstimator)
         self.last_peak_saturated = None
         self._warned_saturation = False
@@ -123,7 +125,7 @@ class BatchedEvaluator:
             rows = row_bounds(-(-h // 8), mesh.n_spatial)
             maps = gather_blocks(maps, rows, mesh.spatial_index,
                                  mesh.spatial, dim=1)
-        out = decode_batch(maps, *self.up, self.decode_params)
+        out = decode_batch(maps, *self.up, self.decode_params, self.skeleton)
         blocks = row_bounds(n, mesh.n_data)
         return Assembled(*(gather_blocks(t, blocks, mesh.data_index,
                                          mesh.data) for t in out))
@@ -133,7 +135,8 @@ class BatchedEvaluator:
         backbone and the padded decode, on the device (one device)."""
         with span("model.forward"):
             maps = run_backbone(self.net, normalize(x))
-        return decode_batch(maps, *self.up, self.decode_params)
+        return decode_batch(maps, *self.up, self.decode_params,
+                            self.skeleton)
 
     def run_batch(self, imgs: np.ndarray) -> List[List]:
         """(B, H, W, 3) uint8 at the network size -> list of per-image
@@ -157,12 +160,9 @@ class BatchedEvaluator:
                     self.decode_params.max_peaks)
                 self._warned_saturation = True
             with span("api.humans"):
-                return [PoseArrays(
-                    coords=arrays.coords[i], scores=arrays.part_scores[i],
-                    part_valid=arrays.part_valid[i],
-                    human_scores=arrays.human_scores[i],
-                    human_valid=arrays.human_valid[i]).to_humans()
-                    for i in range(imgs.shape[0])]
+                return [PoseArrays.of(Assembled(*(a[i] for a in arrays)),
+                                      self.skeleton).to_humans()
+                        for i in range(imgs.shape[0])]
 
     def evaluate(self, images: Iterable[Tuple[int, np.ndarray,
                                               Tuple[int, int]]]
@@ -170,7 +170,8 @@ class BatchedEvaluator:
         """images: iterable of (image_id, uint8 HxWx3, (orig_w, orig_h));
         an image not at the network size is resized to it. The tail batch
         is padded with zero images whose results are dropped. Returns COCO
-        detection dicts."""
+        detection dicts (COCO-18 models only)."""
+        require_coco18(self.skeleton, "COCO keypoint evaluation")
         dets: List[dict] = []
         buf, meta = [], []
         for image_id, img, orig_wh in images:

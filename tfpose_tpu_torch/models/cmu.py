@@ -1,7 +1,8 @@
 """CMU (VGG-19) two-branch OpenPose network.
 
 Port of ``tfpose_tpu/models/cmu.py`` (reference
-``tf_pose/network_cmu.py``): the VGG-19 prefix conv1_1..conv4_2 with
+``tf_pose/network_cmu.py``): the VGG-19 prefix conv1_1..conv4_2 (to
+conv4_1 the stem it shares with BODY_25, ``layers.VGG19_STEM``) with
 ``SAME`` max-pools, the CPM feature convs conv4_3_CPM (256) and
 conv4_4_CPM (128), stage 1 branches ``conv5_{1..5}_CPM_L{1,2}`` (L1 -> 38
 PAF, L2 -> 19 heat), and stages 2..6, each taking concat(prev L1, prev
@@ -23,19 +24,17 @@ from torch import nn
 
 from tfpose_tpu_torch.models.layers import (
     Conv,
-    max_pool,
+    add_vgg19_stem,
     nhwc,
     set_compute_dtype,
     set_quant_mode,
+    vgg19_stem,
 )
+from tfpose_tpu_torch.utils.profiling import span
 
-# VGG-19 prefix: (name, channels) per conv, "pool" for a 2x2 max-pool
-_VGG = [("conv1_1", 64), ("conv1_2", 64), "pool",
-        ("conv2_1", 128), ("conv2_2", 128), "pool",
-        ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256),
-        ("conv3_4", 256), "pool",
-        ("conv4_1", 512), ("conv4_2", 512),
-        ("conv4_3_CPM", 256), ("conv4_4_CPM", 128)]
+# after the shared VGG-19 stem (``layers.VGG19_STEM``, to conv4_1): the
+# last VGG conv and the CPM feature convs, each with ReLU
+_CPM = [("conv4_2", 512), ("conv4_3_CPM", 256), ("conv4_4_CPM", 128)]
 _FEAT = 128
 
 
@@ -48,12 +47,10 @@ class CmuNetwork(nn.Module):
                  quant: str = "none"):
         super().__init__()
         self.num_stages = num_stages
-        ch = 3
-        for layer in _VGG:
-            if layer != "pool":
-                name, out = layer
-                setattr(self, name, Conv(ch, out, (3, 3)))
-                ch = out
+        ch = add_vgg19_stem(self)
+        for name, out in _CPM:
+            setattr(self, name, Conv(ch, out, (3, 3)))
+            ch = out
         for li, out in ((1, 38), (2, 19)):
             ch = _FEAT
             for i in (1, 2, 3):
@@ -84,20 +81,20 @@ class CmuNetwork(nn.Module):
     def forward(self, x: torch.Tensor) -> dict:
         """x: (N, H, W, 3) float -> {"concat_stage7": (N, H/8, W/8, 57),
         "stages": [(paf, heat), ...] NHWC}, in ``self.dtype``."""
-        h = x.to(self.dtype).permute(0, 3, 1, 2)
-        for layer in _VGG:
-            h = max_pool(h) if layer == "pool" else getattr(self, layer[0])(h)
-        feat = h
-        paf, heat = (self._branch([f"conv5_{i}_CPM_L{li}"
-                                   for i in range(1, 6)], feat)
-                     for li in (1, 2))
-        stages = [(paf, heat)]
-        for s in range(2, self.num_stages + 1):
-            inp = torch.cat([paf, heat, feat], 1)
-            paf, heat = (self._branch([f"Mconv{i}_stage{s}_L{li}"
-                                       for i in range(1, 8)], inp)
+        with span("model.stem"):
+            h = vgg19_stem(self, x.to(self.dtype).permute(0, 3, 1, 2))
+            feat = self._branch([name for name, _ in _CPM], h)
+        with span("model.stages"):
+            paf, heat = (self._branch([f"conv5_{i}_CPM_L{li}"
+                                       for i in range(1, 6)], feat)
                          for li in (1, 2))
-            stages.append((paf, heat))
-        out = torch.cat([heat, paf], 1)
+            stages = [(paf, heat)]
+            for s in range(2, self.num_stages + 1):
+                inp = torch.cat([paf, heat, feat], 1)
+                paf, heat = (self._branch([f"Mconv{i}_stage{s}_L{li}"
+                                           for i in range(1, 8)], inp)
+                             for li in (1, 2))
+                stages.append((paf, heat))
+            out = torch.cat([heat, paf], 1)
         return {"concat_stage7": nhwc(out),
                 "stages": [(nhwc(p), nhwc(q)) for p, q in stages]}

@@ -27,6 +27,11 @@ Numerical details kept from flax:
     same biased variance, where ``nn.BatchNorm2d`` would store the
     unbiased one.
 
+``ConvPReLU`` (OpenPose BODY_25's conv and PReLU pair, the port's own) runs
+its conv without the bias and adds the bias and the PReLU in one pass of
+K6 (``ops/kernels/bias_prelu.py``); ``VGG19_STEM`` is the stem that CMU's
+network and BODY_25 share.
+
 Quantisation (``QUANT_MODES``, the JAX package's ``QuantConv``): a conv
 in mode ``"calib"`` computes in fp32 and records the largest |input| in
 its ``in_absmax`` buffer (the flax ``quant`` collection's leaf of the
@@ -52,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tfpose_tpu_torch.ops.kernels.bias_prelu import bias_prelu
 from tfpose_tpu_torch.parallel import halo
 
 BN_EPS = 1e-3
@@ -157,11 +163,14 @@ class SameConv2d(nn.Conv2d):
 
     quant = "none"
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add_bias: bool = True
+                ) -> torch.Tensor:
+        """The conv of ``x``; ``add_bias=False`` leaves the bias out (for
+        a layer that adds it in a later pass of its own)."""
         rows = halo.current_rows()
         if rows is not None and (self.kernel_size[0] > 1
                                  or self.stride[0] > 1):
-            return self._forward_rows(x, rows)
+            return self._forward_rows(x, rows, add_bias)
         top, bottom = same_pads(x.shape[-2], self.kernel_size[0],
                                 self.stride[0])
         left, right = same_pads(x.shape[-1], self.kernel_size[1],
@@ -172,7 +181,9 @@ class SameConv2d(nn.Conv2d):
             acc = int_conv2d(F.pad(xq, (left, right, top, bottom)), wq,
                              self.stride, self.groups)
             y = acc.float() * (s_in * s_w)[:, None, None]
-            return y if self.bias is None else y + self.bias[:, None, None]
+            if self.bias is None or not add_bias:
+                return y
+            return y + self.bias[:, None, None]
         pad = (top, left)
         if top != bottom or left != right:
             x = F.pad(x, (left, right, top, bottom))
@@ -182,10 +193,10 @@ class SameConv2d(nn.Conv2d):
             with torch.no_grad():
                 torch.maximum(self.in_absmax, x.abs().amax(),
                               out=self.in_absmax)
-        return self._conv(x, pad)
+        return self._conv(x, pad, add_bias)
 
-    def _forward_rows(self, x: torch.Tensor, rows: "halo.RowShard"
-                      ) -> torch.Tensor:
+    def _forward_rows(self, x: torch.Tensor, rows: "halo.RowShard",
+                      add_bias: bool = True) -> torch.Tensor:
         """This rank's block of output rows: the input rows its windows
         read (halos of the neighbours, ``SAME`` zeros at the image's
         edges), then the conv without vertical padding."""
@@ -199,18 +210,20 @@ class SameConv2d(nn.Conv2d):
         x = halo.window(x, rows, 2, h, kh, sh, same_pads(h, kh, sh)[0], 0.0)
         left, right = same_pads(x.shape[-1], kw, sw)
         if left != right:
-            return self._conv(F.pad(x, (left, right, 0, 0)), 0)
-        return self._conv(x, (0, left))
+            return self._conv(F.pad(x, (left, right, 0, 0)), 0, add_bias)
+        return self._conv(x, (0, left), add_bias)
 
-    def _conv(self, x: torch.Tensor, pad) -> torch.Tensor:
+    def _conv(self, x: torch.Tensor, pad, add_bias: bool = True
+              ) -> torch.Tensor:
+        bias = self.bias if add_bias else None
         if x.dtype == self.weight.dtype:
-            return F.conv2d(x, self.weight, self.bias, self.stride, pad,
+            return F.conv2d(x, self.weight, bias, self.stride, pad,
                             self.dilation, self.groups)
         y = F.conv2d(x, self.weight.to(x.dtype), None, self.stride, pad,
                      self.dilation, self.groups)
-        if self.bias is None:
+        if bias is None:
             return y
-        return y + self.bias.to(x.dtype)[:, None, None]
+        return y + bias.to(x.dtype)[:, None, None]
 
 
 def set_quant_mode(net: nn.Module, mode: str) -> nn.Module:
@@ -340,6 +353,32 @@ class Conv(nn.Module):
         return F.relu(x) if self.relu else x
 
 
+class ConvPReLU(nn.Module):
+    """conv + bias + PReLU with a slope per output channel — OpenPose
+    BODY_25's conv and PReLU pair (``prelu.weight``: the slopes, 0.25 at
+    init). The conv runs without its bias; K6
+    (``ops/kernels/bias_prelu.py``) then adds the bias and applies the
+    PReLU in one pass: in place for ``forward``, or, through
+    :meth:`bias_prelu`, into the tensors a caller names (a channel slice
+    of a concat buffer)."""
+
+    def __init__(self, in_ch: int, features: int,
+                 kernel: Tuple[int, int] = (3, 3)):
+        super().__init__()
+        self.conv = SameConv2d(in_ch, features, kernel, bias=True)
+        self.prelu = nn.PReLU(features)
+
+    def bias_prelu(self, y: torch.Tensor, outs) -> None:
+        """``prelu(y + bias)`` of this layer's conv output ``y`` (taken
+        with ``add_bias=False``) into each tensor of ``outs``."""
+        bias_prelu(y, self.conv.bias, self.prelu.weight, outs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv(x, add_bias=False)
+        self.bias_prelu(y, (y,))
+        return y
+
+
 class ConvBN(nn.Module):
     """conv + BN + (optional) ReLU — reference ``convb``."""
 
@@ -375,6 +414,35 @@ class SeparableConv(nn.Module):
         x = F.relu(self.dw_bn(self.depthwise(x)))
         x = self.pw_bn(self.pointwise(x))
         return F.relu(x) if self.relu else x
+
+
+# VGG-19's first ten convs (conv1_1 .. conv4_1, each with a bias and
+# ReLU), the stem that CMU's network and BODY_25 share; "pool" is a 2x2
+# max-pool
+VGG19_STEM = [("conv1_1", 64), ("conv1_2", 64), "pool",
+              ("conv2_1", 128), ("conv2_2", 128), "pool",
+              ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256),
+              ("conv3_4", 256), "pool",
+              ("conv4_1", 512)]
+
+
+def add_vgg19_stem(net: nn.Module) -> int:
+    """Give ``net`` the stem's convs as ``Conv`` children named as in
+    :data:`VGG19_STEM`; returns the stem's output channels."""
+    ch = 3
+    for layer in VGG19_STEM:
+        if layer != "pool":
+            name, out = layer
+            setattr(net, name, Conv(ch, out, (3, 3)))
+            ch = out
+    return ch
+
+
+def vgg19_stem(net: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The stem of :func:`add_vgg19_stem` on NCHW ``x`` (stride 8)."""
+    for layer in VGG19_STEM:
+        x = max_pool(x) if layer == "pool" else getattr(net, layer[0])(x)
+    return x
 
 
 def nhwc(t: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Model registry — port of ``tfpose_tpu/models/registry.py``
 (reference ``tf_pose/networks.py``): ``get_network(name, dtype, quant)``,
-``model_wh('432x368')`` and checkpoint path resolution."""
+``skeleton_of(name)``, ``model_wh('432x368')`` and checkpoint path
+resolution. ``"body25"`` (OpenPose BODY_25) is the port's own; the
+others mirror the JAX package's networks."""
 
 from __future__ import annotations
 
@@ -10,11 +12,14 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from tfpose_tpu_torch.core.topology import BODY25, COCO18, Skeleton
+from tfpose_tpu_torch.models.body25 import Body25Network
 from tfpose_tpu_torch.models.cmu import CmuNetwork
 from tfpose_tpu_torch.models.mobilenet import MobilenetNetwork
 from tfpose_tpu_torch.models.mobilenet_v2 import MobilenetV2Network
 
 MODEL_NAMES = (
+    "body25",
     "cmu",
     "mobilenet",
     "mobilenet_thin",
@@ -37,6 +42,8 @@ def get_network(name: str, dtype: torch.dtype = torch.float32,
         raise ValueError(f"dtype must be torch.float32 or torch.bfloat16, "
                          f"got {dtype}")
     kw = dict(dtype=dtype, quant=quant)
+    if name == "body25":
+        return Body25Network(**kw)
     if name in ("cmu", "vgg"):
         return CmuNetwork(**kw)
     if name == "mobilenet":
@@ -49,6 +56,15 @@ def get_network(name: str, dtype: torch.dtype = torch.float32,
         return MobilenetV2Network(conv_width=0.50, refine_width=0.50, **kw)
     raise ValueError(
         f"unknown model {name!r}; known: {', '.join(MODEL_NAMES)}")
+
+
+def skeleton_of(name: str) -> Skeleton:
+    """The skeleton of a registry model's maps: OpenPose BODY_25's for
+    ``"body25"``, COCO-18's for the others."""
+    if name not in MODEL_NAMES + ("vgg",):
+        raise ValueError(
+            f"unknown model {name!r}; known: {', '.join(MODEL_NAMES)}")
+    return BODY25 if name == "body25" else COCO18
 
 
 def get_checkpoint_path(model_name: str, model_dir: str | None = None) -> str:

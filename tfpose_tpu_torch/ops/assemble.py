@@ -4,16 +4,23 @@ Port of ``tfpose_tpu/ops/assemble.py:assemble_dense`` (reference
 ``pafprocess.cpp`` step 4), batched over a leading image dim. The
 semantics, from the JAX module's docstring:
 
-  * the spanning-tree pairs 0..16 reduce to connected components: nodes
-    are (18 parts x K slots), edges the accepted connections; min-label
+  * the spanning-tree pairs reduce to connected components: nodes are
+    (parts x K slots), edges the accepted connections; min-label
     propagation with path compression (a fixed 10 rounds, more than the
     tree's diameter needs) finds them;
-  * the two redundant ear<->shoulder pairs (17, 18) follow the
+  * the two redundant ear<->shoulder pairs (COCO-18's 17 and 18, the
+    last; BODY_25's 18 and 19, before its six foot limbs) follow the
     reference's SEQUENTIAL, SLOT-BASED loop: each connection either fuses
     two occupancy-disjoint rows (adding its score), or, when the rows
     overlap or the ear is in no row's slot, adds the ear to a target
     row (the earlier-created row, or the shoulder's row), displacing that
-    row's current ear slot owner, count += 1, score += peak + conn;
+    row's current ear slot owner, count += 1, score += peak + conn. The
+    rows it sees are those of the tree pairs before it: their part
+    presence counts only nodes of those pairs' connections. A tree pair
+    after it only hangs new parts on a row (the skeleton's limbs are a
+    tree grown in order, ``core/topology.py:Skeleton``), so its
+    connections join the components without changing what the walk
+    saw;
   * per-component part counts and mean scores are thresholded
     (THRESH_PART_CNT, THRESH_HUMAN_SCORE), and the kept components are
     compacted in node order and padded to ``max_humans``; ears are
@@ -47,7 +54,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from tfpose_tpu_torch.core.config import DecodeParams
-from tfpose_tpu_torch.core.topology import NUM_PARTS, pairs_array
+from tfpose_tpu_torch.core.topology import COCO18, Skeleton
 from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.nms import Peaks
 from tfpose_tpu_torch.ops.paf import Connections
@@ -58,7 +65,7 @@ MAX_K = 128  # peaks per part the kernel takes (the escalated decode's K)
 _ptr = ctypes.c_void_p
 _int = ctypes.c_int
 # argument types of the kernel's C launch function, in order
-ASSEMBLE_ARGTYPES = ([_ptr] * 15 + [_int] * 7
+ASSEMBLE_ARGTYPES = ([_ptr] * 15 + [_int] * 8
                      + [ctypes.c_float, _int, ctypes.c_float, ctypes.c_float,
                         _ptr])
 
@@ -67,12 +74,12 @@ class Assembled(NamedTuple):
     """Padded decode result (pre-normalisation, heatmap pixel coords);
     every tensor has the batch dims of the input first."""
 
-    coords: torch.Tensor        # (max_humans, 18, 2) float32 (x, y), -1 pad
-    part_scores: torch.Tensor   # (max_humans, 18) float32
-    part_valid: torch.Tensor    # (max_humans, 18) bool
+    coords: torch.Tensor        # (max_humans, parts, 2) float32 (x, y), -1 pad
+    part_scores: torch.Tensor   # (max_humans, parts) float32
+    part_valid: torch.Tensor    # (max_humans, parts) bool
     human_scores: torch.Tensor  # (max_humans,) float32 (score sum / count)
     human_valid: torch.Tensor   # (max_humans,) bool
-    # (18,) bool — every top-K slot of the part is above threshold: the
+    # (parts,) bool — every top-K slot of the part is above threshold: the
     # decode MAY have dropped real peaks of that part
     peak_saturated: torch.Tensor
 
@@ -102,15 +109,16 @@ def _pick(vals: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
 
 def assemble_dense_plain(peaks: Peaks, conns: Connections,
-                         params: DecodeParams) -> Assembled:
-    """The plain version of :func:`assemble_dense`: peaks (B, 18, K) +
-    connections (B, 19, K) -> Assembled (B, ...), coordinates in heatmap
-    pixels."""
+                         params: DecodeParams,
+                         skeleton: Skeleton = COCO18) -> Assembled:
+    """The plain version of :func:`assemble_dense`: peaks (B, parts, K) +
+    connections (B, limbs, K) -> Assembled (B, ...), coordinates in
+    heatmap pixels."""
     dev = peaks.x.device
     bsz, num_parts, k = peaks.x.shape
-    assert num_parts == NUM_PARTS
     n = num_parts * k
-    pairs = pairs_array()
+    pairs = skeleton.pairs_array()
+    r0, r1 = skeleton.redundant
     part_ids = torch.arange(num_parts, device=dev)
     max_h = params.max_humans
     iota_n = torch.arange(n, dtype=torch.long, device=dev).expand(bsz, n)
@@ -134,7 +142,8 @@ def assemble_dense_plain(peaks: Peaks, conns: Connections,
     order_e = torch.arange(n_e, device=dev).expand(bsz, n_e)
     big_order = n_e + 1
 
-    tree = e_valid & (e_pair < 17)
+    tree = e_valid & (e_pair != r0) & (e_pair != r1)
+    before = e_valid & (e_pair < r0)   # the rows the redundant walk sees
     big = torch.full_like(a_node, n)
     labels = iota_n.clone()
     for _ in range(_LABEL_ITERS):
@@ -145,15 +154,19 @@ def assemble_dense_plain(peaks: Peaks, conns: Connections,
         labels = _at(labels, labels)
     labels0 = _at(labels, labels)
 
-    tree_i = tree.long()
-    used = torch.zeros(bsz, n, dtype=torch.long, device=dev)
-    used = used.scatter_reduce(1, a_node, tree_i, "amax")
-    used = used.scatter_reduce(1, b_node, tree_i, "amax").bool()
+    def in_edges(edges):
+        flag = edges.long()
+        out = torch.zeros(bsz, n, dtype=torch.long, device=dev)
+        out = out.scatter_reduce(1, a_node, flag, "amax")
+        return out.scatter_reduce(1, b_node, flag, "amax").bool()
+
+    used = in_edges(tree)
+    used_b = in_edges(before)
 
     # ---- per-root state (values live at root node positions)
     pres = torch.zeros(bsz, n * num_parts, dtype=torch.long, device=dev)
     pres = pres.scatter_reduce(1, labels0 * num_parts + node_part,
-                               used.long(), "amax")
+                               used_b.long(), "amax")
     pres = pres.reshape(bsz, n, num_parts).bool()
     creation = torch.full((bsz, n), big_order, dtype=torch.long, device=dev)
     creation = creation.scatter_reduce(
@@ -162,13 +175,13 @@ def assemble_dense_plain(peaks: Peaks, conns: Connections,
         "amin")
 
     def init_owner(p2):
-        vals = torch.where(used & (node_part == p2), iota_n,
+        vals = torch.where(used_b & (node_part == p2), iota_n,
                            torch.full_like(iota_n, -1))
         return torch.full_like(iota_n, -1).scatter_reduce(
             1, labels0, vals, "amax")
 
-    owner16 = init_owner(int(pairs[17, 1]))
-    owner17 = init_owner(int(pairs[18, 1]))
+    owner0 = init_owner(int(pairs[r0, 1]))
+    owner1 = init_owner(int(pairs[r1, 1]))
     bon_s = torch.zeros(bsz, n, dtype=torch.float32, device=dev)
     bon_c = torch.zeros(bsz, n, dtype=torch.long, device=dev)
 
@@ -187,7 +200,7 @@ def assemble_dense_plain(peaks: Peaks, conns: Connections,
             a, b = a_node[:, e], b_node[:, e]
             es = e_score[:, e]
             ra = _pick(labels, a)
-            in_a = _pick(used, a) & ve
+            in_a = _pick(used_b, a) & ve
             ps_b = _pick(node_score, b)
             match_b = o_this == b[:, None]
             has_b = match_b.any(1) & ve
@@ -229,10 +242,10 @@ def assemble_dense_plain(peaks: Peaks, conns: Connections,
                                  rmin[:, None], labels)
         return labels, pres, o_this, o_other, creation, bon_s, bon_c
 
-    labels, pres, owner16, owner17, creation, bon_s, bon_c = run_pair(
-        17, labels0, pres, owner16, owner17, creation, bon_s, bon_c)
-    labels, pres, owner17, owner16, creation, bon_s, bon_c = run_pair(
-        18, labels, pres, owner17, owner16, creation, bon_s, bon_c)
+    labels, pres, owner0, owner1, creation, bon_s, bon_c = run_pair(
+        r0, labels0, pres, owner0, owner1, creation, bon_s, bon_c)
+    labels, pres, owner1, owner0, creation, bon_s, bon_c = run_pair(
+        r1, labels, pres, owner1, owner0, creation, bon_s, bon_c)
     root = labels
 
     # ---- per-root aggregates
@@ -274,7 +287,7 @@ def assemble_dense_plain(peaks: Peaks, conns: Connections,
 
     # ---- ears from the slot owners, like the reference's rows
     node_hr = node_h.reshape(bsz, n)
-    for owner, pid in ((owner16, 17), (owner17, 18)):
+    for owner, pid in ((owner0, r0), (owner1, r1)):
         p2 = int(pairs[pid, 1])
         valid_o = owner >= 0
         h_arr = torch.where(valid_o, node_hr, torch.full_like(node_hr, max_h))
@@ -316,26 +329,28 @@ def normalise_coords(out: Assembled, w: int, h: int) -> Assembled:
     return out._replace(coords=coords)
 
 
-@functools.lru_cache(maxsize=1)
-def _pair_table() -> torch.Tensor:
-    """(19, 2) int32 on the host: each pair's parts, the kernel's table."""
-    return torch.from_numpy(pairs_array()).int().contiguous()
+@functools.lru_cache(maxsize=4)
+def _pair_table(skeleton: Skeleton) -> torch.Tensor:
+    """(limbs, 2) int32 on the host: each limb's parts, the kernel's
+    table."""
+    return torch.from_numpy(skeleton.pairs_array()).int().contiguous()
 
 
-def _check(peaks: Peaks, conns: Connections) -> None:
+def _check(peaks: Peaks, conns: Connections, skeleton: Skeleton) -> None:
     x = peaks.x
-    if x.dim() != 3 or x.shape[1] != NUM_PARTS or not 1 <= x.shape[2] <= MAX_K:
-        raise ValueError(f"peaks: want (B, {NUM_PARTS}, K) with K in "
+    parts = skeleton.num_parts
+    if x.dim() != 3 or x.shape[1] != parts or not 1 <= x.shape[2] <= MAX_K:
+        raise ValueError(f"peaks: want (B, {parts}, K) with K in "
                          f"1..{MAX_K}, got {tuple(x.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {x.device}")
     b, _, k = x.shape
-    n_pairs = len(pairs_array())
+    n_pairs = skeleton.num_pairs
     for name, t, dt, rows in (
-            ("peaks.x", x, torch.int32, NUM_PARTS),
-            ("peaks.y", peaks.y, torch.int32, NUM_PARTS),
-            ("peaks.score", peaks.score, torch.float32, NUM_PARTS),
-            ("peaks.valid", peaks.valid, torch.bool, NUM_PARTS),
+            ("peaks.x", x, torch.int32, parts),
+            ("peaks.y", peaks.y, torch.int32, parts),
+            ("peaks.score", peaks.score, torch.float32, parts),
+            ("peaks.valid", peaks.valid, torch.bool, parts),
             ("conns.a_slot", conns.a_slot, torch.int32, n_pairs),
             ("conns.b_slot", conns.b_slot, torch.int32, n_pairs),
             ("conns.score", conns.score, torch.float32, n_pairs),
@@ -348,9 +363,11 @@ def _check(peaks: Peaks, conns: Connections) -> None:
 
 
 def assemble_dense(peaks: Peaks, conns: Connections, params: DecodeParams,
-                   size: Optional[Tuple[int, int]] = None) -> Assembled:
-    """Peaks (B, 18, K) + connections (B, 19, K) -> Assembled (B, ...);
-    unbatched (18, K) / (19, K) inputs give unbatched outputs. Peaks are
+                   size: Optional[Tuple[int, int]] = None,
+                   skeleton: Skeleton = COCO18) -> Assembled:
+    """Peaks (B, parts, K) + connections (B, limbs, K) of ``skeleton`` ->
+    Assembled (B, ...); unbatched (parts, K) / (limbs, K) inputs give
+    unbatched outputs. Peaks are
     int32 x, y, fp32 score, bool valid; connections int32 slots, fp32
     score, bool valid; K in 1..128. With ``size`` (w, h) the coordinates
     are normalised by it (:func:`normalise_coords`), else they are
@@ -358,18 +375,18 @@ def assemble_dense(peaks: Peaks, conns: Connections, params: DecodeParams,
     if peaks.x.dim() == 2:
         out = assemble_dense(Peaks(*(t[None] for t in peaks)),
                              Connections(*(t[None] for t in conns)), params,
-                             size)
+                             size, skeleton)
         return Assembled(*(t[0] for t in out))
-    _check(peaks, conns)
+    _check(peaks, conns, skeleton)
     if peaks.x.device.type == "cpu":
-        out = assemble_dense_plain(peaks, conns, params)
+        out = assemble_dense_plain(peaks, conns, params, skeleton)
         return out if size is None else normalise_coords(out, *size)
     dev = peaks.x.device
     b, parts, k = peaks.x.shape
     max_h = params.max_humans
     x, y, score, valid = (t.contiguous() for t in peaks)
     a_slot, b_slot, c_score, c_valid = (t.contiguous() for t in conns)
-    table = _pair_table()
+    table = _pair_table(skeleton)
     f32 = dict(dtype=torch.float32, device=dev)
     out = Assembled(
         coords=torch.empty((b, max_h, parts, 2), **f32),
@@ -386,7 +403,8 @@ def assemble_dense(peaks: Peaks, conns: Connections, params: DecodeParams,
                 valid.data_ptr(), a_slot.data_ptr(), b_slot.data_ptr(),
                 c_score.data_ptr(), c_valid.data_ptr(),
                 *(t.data_ptr() for t in out), table.data_ptr(), b, parts,
-                table.shape[0], k, max_h, _LABEL_ITERS,
+                table.shape[0], skeleton.redundant[0], k, max_h,
+                _LABEL_ITERS,
                 params.thresh_part_cnt, float(params.thresh_human_score),
                 int(size is not None), sx, sy,
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from tfpose_tpu_torch.core.config import DecodeParams
-from tfpose_tpu_torch.core.topology import pairs_array, paf_channels_array
+from tfpose_tpu_torch.core.topology import COCO18, Skeleton
 from tfpose_tpu_torch.ops.kernels import build
 from tfpose_tpu_torch.ops.nms import Peaks
 
@@ -64,19 +64,20 @@ def _steps(s: int, device: str) -> torch.Tensor:
     return (torch.arange(s, dtype=torch.float32) / s).to(device)
 
 
-@functools.lru_cache(maxsize=1)
-def _pair_table() -> torch.Tensor:
-    """(19, 4) int32 on the host: each pair's parts a, b and its x, y PAF
-    channels, the kernel's table."""
-    return torch.from_numpy(np.concatenate([pairs_array(),
-                                            paf_channels_array()], 1))
+@functools.lru_cache(maxsize=4)
+def _pair_table(skeleton: Skeleton) -> torch.Tensor:
+    """(limbs, 4) int32 on the host: each limb's parts a, b and its x, y
+    PAF channels, the kernel's table."""
+    return torch.from_numpy(np.concatenate([
+        skeleton.pairs_array(), skeleton.paf_channels_array()], 1))
 
 
-def candidate_geometry(peaks: Peaks, h: int, w: int, params: DecodeParams):
+def candidate_geometry(peaks: Peaks, h: int, w: int, params: DecodeParams,
+                       skeleton: Skeleton = COCO18):
     """Candidate geometry on an (h, w) grid: endpoint validity,
     direction vectors, distances, and rounded sample-point coordinates.
-    Peaks are (..., 18, K); outputs (..., 19, K, K[, S])."""
-    pairs = torch.as_tensor(pairs_array(), dtype=torch.long,
+    Peaks are (..., parts, K); outputs (..., limbs, K, K[, S])."""
+    pairs = torch.as_tensor(skeleton.pairs_array(), dtype=torch.long,
                             device=peaks.x.device)
     ax = peaks.x[..., pairs[:, 0], :].float()
     ay = peaks.y[..., pairs[:, 0], :].float()
@@ -120,28 +121,30 @@ def criteria(mean, cnt, norm, safe, av, bv, h: int,
 
 def raw_sample_inputs(peaks_b: Peaks, paf8_b: torch.Tensor, up_h: int,
                       up_w: int, params: DecodeParams,
-                      prefix_valid: bool = True):
+                      prefix_valid: bool = True,
+                      skeleton: Skeleton = COCO18):
     """The inputs of the TPU kernel, and of :func:`paf_sample_scores_plain`,
-    for peaks (B, 18, K) on raw planes (B, h8, w8, 38): ``(planes, iy, ix,
-    vx, vy, nrows)`` with planes (B*19, 2, h8, w8) and per-sample arrays
-    (B*19, S, K*K), plus the candidate geometry ``(norm, safe, av, bv)``
-    (B, 19, K, K)."""
+    for peaks (B, parts, K) on raw planes (B, h8, w8, PAF channels):
+    ``(planes, iy, ix, vx, vy, nrows)`` with planes (B*L, 2, h8, w8) and
+    per-sample arrays (B*L, S, K*K), L the skeleton's limbs, plus the
+    candidate geometry ``(norm, safe, av, bv)`` (B, L, K, K)."""
     b, h8, w8, _ = paf8_b.shape
     fy, fx = up_h // h8, up_w // w8
     vx, vy, norm, safe, av, bv, iy, ix = candidate_geometry(
-        peaks_b, up_h, up_w, params)
+        peaks_b, up_h, up_w, params, skeleton)
     k = vx.shape[-1]
     s = params.step_paf
-    pc = torch.as_tensor(paf_channels_array(), dtype=torch.long,
+    n_pairs = skeleton.num_pairs
+    pc = torch.as_tensor(skeleton.paf_channels_array(), dtype=torch.long,
                          device=paf8_b.device)
-    planes = paf8_b.float()[..., pc].permute(0, 3, 4, 1, 2)  # (B,19,2,h8,w8)
-    planes = planes.reshape(b * 19, 2, h8, w8)
+    planes = paf8_b.float()[..., pc].permute(0, 3, 4, 1, 2)  # (B,L,2,h8,w8)
+    planes = planes.reshape(b * n_pairs, 2, h8, w8)
 
-    def sample_major(a):  # (B, 19, K, K, S) -> (B*19, S, K*K)
-        return a.permute(0, 1, 4, 2, 3).reshape(b * 19, s, k * k)
+    def sample_major(a):  # (B, L, K, K, S) -> (B*L, S, K*K)
+        return a.permute(0, 1, 4, 2, 3).reshape(b * n_pairs, s, k * k)
 
     if prefix_valid:
-        va = av.int().sum(-1)                                  # (B, 19)
+        va = av.int().sum(-1)                                  # (B, L)
         nrows = torch.where(bv.any(-1), (va * k + LANES - 1) // LANES,
                             torch.zeros_like(va))
     else:
@@ -150,7 +153,7 @@ def raw_sample_inputs(peaks_b: Peaks, paf8_b: torch.Tensor, up_h: int,
     samples = (planes, sample_major(iy // fy), sample_major(ix // fx),
                sample_major(vx[..., None].expand(*vx.shape, s)),
                sample_major(vy[..., None].expand(*vy.shape, s)),
-               nrows.reshape(b * 19).int())
+               nrows.reshape(b * n_pairs).int())
     return samples, (norm, safe, av, bv)
 
 
@@ -182,10 +185,11 @@ def paf_sample_scores_plain(planes, iy, ix, vx, vy, nrows, *, s_paf: int,
 
 def score_candidates_raw_plain(peaks_b: Peaks, paf8_b: torch.Tensor,
                                up_h: int, up_w: int, params: DecodeParams,
-                               prefix_valid: bool = True) -> Candidates:
+                               prefix_valid: bool = True,
+                               skeleton: Skeleton = COCO18) -> Candidates:
     """The plain version of :func:`score_candidates_raw`."""
     samples, (norm, safe, av, bv) = raw_sample_inputs(
-        peaks_b, paf8_b, up_h, up_w, params, prefix_valid)
+        peaks_b, paf8_b, up_h, up_w, params, prefix_valid, skeleton)
     mean, cnt = paf_sample_scores_plain(
         *samples, s_paf=params.step_paf,
         thresh=float(params.thresh_vector_score))
@@ -194,11 +198,13 @@ def score_candidates_raw_plain(peaks_b: Peaks, paf8_b: torch.Tensor,
 
 
 def _check(peaks_b: Peaks, paf8_b: torch.Tensor, up_h: int, up_w: int,
-           params: DecodeParams) -> None:
+           params: DecodeParams, skeleton: Skeleton) -> None:
     x, y, valid = peaks_b.x, peaks_b.y, peaks_b.valid
-    if x.dim() != 3 or x.shape[1] != 18 or not 1 <= x.shape[2] <= MAX_K:
-        raise ValueError(f"peaks: want (B, 18, K) with K in 1..{MAX_K}, got "
-                         f"{tuple(x.shape)}")
+    parts = skeleton.num_parts
+    if (x.dim() != 3 or x.shape[1] != parts
+            or not 1 <= x.shape[2] <= MAX_K):
+        raise ValueError(f"peaks: want (B, {parts}, K) with K in "
+                         f"1..{MAX_K}, got {tuple(x.shape)}")
     for name, t, dt in (("x", x, torch.int32), ("y", y, torch.int32),
                         ("valid", valid, torch.bool)):
         if t.dtype != dt or t.shape != x.shape or t.device != paf8_b.device:
@@ -206,9 +212,11 @@ def _check(peaks_b: Peaks, paf8_b: torch.Tensor, up_h: int, up_w: int,
                              f"{paf8_b.device}, got {tuple(t.shape)} "
                              f"{t.dtype} on {t.device}")
     if (paf8_b.dtype != torch.float32 or paf8_b.dim() != 4
-            or paf8_b.shape[0] != x.shape[0] or paf8_b.shape[3] != 38):
-        raise ValueError(f"paf8: want ({x.shape[0]}, h8, w8, 38) float32, "
-                         f"got {tuple(paf8_b.shape)} {paf8_b.dtype}")
+            or paf8_b.shape[0] != x.shape[0]
+            or paf8_b.shape[3] != skeleton.paf_ch):
+        raise ValueError(f"paf8: want ({x.shape[0]}, h8, w8, "
+                         f"{skeleton.paf_ch}) float32, got "
+                         f"{tuple(paf8_b.shape)} {paf8_b.dtype}")
     h8, w8 = paf8_b.shape[1:3]
     if min(h8, w8) < 1 or up_h % h8 or up_w % w8 or up_h < h8 or up_w < w8:
         raise ValueError(f"({up_h}, {up_w}) is no integer upsample of the "
@@ -222,19 +230,21 @@ def _check(peaks_b: Peaks, paf8_b: torch.Tensor, up_h: int, up_w: int,
 
 def score_candidates_raw(peaks_b: Peaks, paf8_b: torch.Tensor, up_h: int,
                          up_w: int, params: DecodeParams,
-                         prefix_valid: bool = True) -> Candidates:
-    """Candidates (B, 19, K, K) of peaks (B, 18, K) (int32 x, y on the
-    (up_h, up_w) grid, bool valid) on the raw PAF ``paf8_b`` (B, h8, w8,
-    38) fp32, any strides (a view of the network output is read in
-    place), where (up_h, up_w) is an integer multiple of (h8, w8)."""
-    _check(peaks_b, paf8_b, up_h, up_w, params)
+                         prefix_valid: bool = True,
+                         skeleton: Skeleton = COCO18) -> Candidates:
+    """Candidates (B, limbs, K, K) of peaks (B, parts, K) (int32 x, y on
+    the (up_h, up_w) grid, bool valid) on the raw PAF ``paf8_b`` (B, h8,
+    w8, PAF channels) fp32 of ``skeleton``, any strides (a view of the
+    network output is read in place), where (up_h, up_w) is an integer
+    multiple of (h8, w8)."""
+    _check(peaks_b, paf8_b, up_h, up_w, params, skeleton)
     if paf8_b.device.type == "cpu":
         return score_candidates_raw_plain(peaks_b, paf8_b, up_h, up_w,
-                                          params, prefix_valid)
+                                          params, prefix_valid, skeleton)
     b, k = peaks_b.x.shape[0], peaks_b.x.shape[2]
     x, y, valid = (t.contiguous() for t in (peaks_b.x, peaks_b.y,
                                              peaks_b.valid))
-    table = _pair_table()
+    table = _pair_table(skeleton)
     n_pairs = table.shape[0]
     steps = _steps(params.step_paf, "cpu")  # copied into the launch
     dev = paf8_b.device

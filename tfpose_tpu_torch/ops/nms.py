@@ -51,7 +51,8 @@ def stable_topk(flat: torch.Tensor, k: int):
 
 def top_peaks(peaks_map: torch.Tensor, max_peaks: int,
               thresh: float, num_parts: int = 18) -> Peaks:
-    """Extract top-K peaks per part from an NMS'd (H, W, 19) plane."""
+    """Extract top-K peaks per part from an NMS'd (H, W, heat channels)
+    plane; ``num_parts``: the skeleton's parts (COCO-18's by default)."""
     h, w, _ = peaks_map.shape
     flat = peaks_map[:, :, :num_parts].reshape(h * w, num_parts).T
     scores, idx = stable_topk(flat, max_peaks)

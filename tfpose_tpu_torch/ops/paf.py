@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from tfpose_tpu_torch.core.config import DecodeParams
-from tfpose_tpu_torch.core.topology import paf_channels_array
+from tfpose_tpu_torch.core.topology import COCO18, Skeleton
 from tfpose_tpu_torch.ops.kernels.paf_score import (
     Candidates,
     candidate_geometry,
@@ -43,26 +43,27 @@ class Connections(NamedTuple):
 
 def _score_from_samples(px, py, vx, vy, norm, safe, av, bv, h,
                         params: DecodeParams) -> Candidates:
-    """px/py: (..., 19, K, K, S) sampled PAF x/y channels."""
+    """px/py: (..., limbs, K, K, S) sampled PAF x/y channels."""
     s = vx[..., None] * px + vy[..., None] * py
     cnt = (s > params.thresh_vector_score).sum(-1)
     return criteria(s.mean(-1), cnt, norm, safe, av, bv, h, params)
 
 
 def score_candidates_batch(peaks_b: Peaks, paf_up_b: torch.Tensor,
-                           params: DecodeParams) -> Candidates:
-    """Gather scorer: peaks (B, 18, K), ``paf_up_b`` (B, H, W, 38)
-    upsampled PAF maps -> Candidates (B, 19, K, K)."""
+                           params: DecodeParams,
+                           skeleton: Skeleton = COCO18) -> Candidates:
+    """Gather scorer: peaks (B, parts, K), ``paf_up_b`` (B, H, W, PAF
+    channels) upsampled PAF maps -> Candidates (B, limbs, K, K)."""
     b, h, w, c = paf_up_b.shape
     vx, vy, norm, safe, av, bv, iy, ix = candidate_geometry(
-        peaks_b, h, w, params)
-    pc = torch.as_tensor(paf_channels_array(), dtype=torch.long,
+        peaks_b, h, w, params, skeleton)
+    pc = torch.as_tensor(skeleton.paf_channels_array(), dtype=torch.long,
                          device=paf_up_b.device)
     table = paf_up_b.float().reshape(b, h * w, c)
-    flat = (iy.long() * w + ix.long()).reshape(b, -1)         # (B, 19KKS)
+    flat = (iy.long() * w + ix.long()).reshape(b, -1)         # (B, LKKS)
     shape = iy.shape
 
-    def channel(ch):  # ch: (19,) channel per pair
+    def channel(ch):  # ch: (L,) channel per limb
         chans = ch.view(1, -1, 1, 1, 1).expand(shape).reshape(b, -1)
         return table.reshape(b, -1)[
             torch.arange(b, device=flat.device)[:, None],
@@ -73,10 +74,12 @@ def score_candidates_batch(peaks_b: Peaks, paf_up_b: torch.Tensor,
 
 
 def score_candidates(peaks: Peaks, paf_up: torch.Tensor,
-                     params: DecodeParams) -> Candidates:
-    """Score all candidates of one image. ``paf_up``: (H, W, 38)."""
+                     params: DecodeParams,
+                     skeleton: Skeleton = COCO18) -> Candidates:
+    """Score all candidates of one image. ``paf_up``: (H, W, PAF
+    channels)."""
     out = score_candidates_batch(Peaks(*(t[None] for t in peaks)),
-                                 paf_up[None], params)
+                                 paf_up[None], params, skeleton)
     return Candidates(score=out.score[0], ok=out.ok[0])
 
 

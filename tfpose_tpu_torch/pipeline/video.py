@@ -31,7 +31,7 @@ from typing import Iterable, Iterator, List, Tuple
 import numpy as np
 import torch
 
-from tfpose_tpu_torch.core.types import Human
+from tfpose_tpu_torch.core.types import Human, PoseArrays
 from tfpose_tpu_torch.ops.assemble import Assembled
 from tfpose_tpu_torch.ops.decode import decode
 
@@ -69,10 +69,10 @@ class VideoPipeline:
             net.record_stream(stream)
         w, h = self.e.target_size
         out = decode(net, int(h / 8 * self.ratio), int(w / 8 * self.ratio),
-                     self.e.decode_params)
+                     self.e.decode_params, self.e.skeleton)
         arrays = Assembled(*(t.cpu().numpy() for t in out))
         self.e._note_saturation(arrays.peak_saturated)
-        return self.e._humans(arrays)
+        return self.e._humans(PoseArrays.of(arrays, self.e.skeleton))
 
     def run(self, frames: Iterable[np.ndarray]
             ) -> Iterator[Tuple[np.ndarray, List[Human]]]:

@@ -124,7 +124,8 @@ class PoseService:
             with self._lock:
                 humans = self.estimator.inference(
                     img, resize_to_default=True, upsample_size=self.ratio)
-        msg = humans_to_msg(humans, img.shape[1], img.shape[0])
+        msg = humans_to_msg(humans, img.shape[1], img.shape[0],
+                            self.estimator.skeleton)
         return msg.to_dict()
 
     def start(self) -> Tuple[str, int]:

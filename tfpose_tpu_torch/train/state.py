@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from tfpose_tpu_torch.models.body25 import Body25Network
 from tfpose_tpu_torch.parallel import halo
 from tfpose_tpu_torch.parallel.mesh import (
     all_reduce_grads,
@@ -130,6 +131,10 @@ def batch_loss(net: nn.Module, batch: Dict[str, Any], rasterize: bool = False,
     into targets on the device (``train/targets.py``; inside a
     row-sharded forward, this rank's rows of them)."""
     device = next(net.parameters()).device
+    if isinstance(net, Body25Network):
+        raise NotImplementedError(
+            "BODY_25 has no training path: the targets and the stage loss "
+            "are the COCO-18 networks' (25-part labels are not in the repo)")
     b = to_device_batch(batch, device)
     net.train()
     out = net(b["image"])

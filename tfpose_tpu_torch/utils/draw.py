@@ -1,6 +1,8 @@
 """Skeleton rendering — reference ``TfPoseEstimator.draw_humans``
-(``tf_pose/estimator.py:~230``): a circle at each part (CocoColors) and
-a line for each of the 17 rendered pairs.
+(``tf_pose/estimator.py:~230``): a circle at each part and a line for
+each rendered pair of the human's skeleton, in its colours (COCO-18: 18
+parts, 17 pairs, ``CocoColors``; BODY_25: 25 parts, 24 pairs, OpenPose's
+colours).
 
 Port of ``tfpose_tpu/utils/draw.py``, which draws with
 ``cv2.circle(img, c, 3, color, thickness=3)`` and
@@ -28,11 +30,6 @@ from typing import List, Tuple
 
 import numpy as np
 
-from tfpose_tpu_torch.core.topology import (
-    CocoColors,
-    CocoPairsRender,
-    NUM_PARTS,
-)
 from tfpose_tpu_torch.core.types import Human
 
 _SHIFT = 16                 # cv2's XY_SHIFT: fixed-point fraction bits
@@ -283,22 +280,23 @@ def draw_humans(npimg: np.ndarray, humans: List[Human],
         npimg = np.copy(npimg)
     image_h, image_w = npimg.shape[:2]
     for human in humans:
+        sk = human.skeleton
         centers = {}
-        for i in range(NUM_PARTS):
+        for i in range(sk.num_parts):
             if i not in human.body_parts:
                 continue
             body_part = human.body_parts[i]
             center = (int(body_part.x * image_w + 0.5),
                       int(body_part.y * image_h + 0.5))
             centers[i] = center
-            _paint_circle(npimg, center, _color(npimg, CocoColors[i]))
-        for pair_order, pair in enumerate(CocoPairsRender):
+            _paint_circle(npimg, center, _color(npimg, sk.colors[i]))
+        for pair_order, pair in enumerate(sk.render_pairs):
             if pair[0] not in human.body_parts \
                     or pair[1] not in human.body_parts:
                 continue
             c = _Canvas(image_h, image_w)
             _line(c, centers[pair[0]], centers[pair[1]])
-            npimg[c.mask] = _color(npimg, CocoColors[pair_order])
+            npimg[c.mask] = _color(npimg, sk.colors[pair_order])
     return npimg
 
 
