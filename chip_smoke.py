@@ -775,18 +775,9 @@ def same_humans(got, want, what: str) -> None:
 
 def kernel_wrappers():
     """The six kernels' wrappers, by name; each counts its launches."""
-    from tfpose_tpu_torch.ops.assemble import assemble_dense
-    from tfpose_tpu_torch.ops.kernels.bias_prelu import bias_prelu
-    from tfpose_tpu_torch.ops.kernels.paf_score import score_candidates_raw
-    from tfpose_tpu_torch.ops.kernels.smooth_nms import (
-        smooth_nms, smooth_nms_topk, smooth_nms_topk_raw)
+    from tfpose_tpu_torch.ops.kernels import wrappers
 
-    return {"smooth_nms_topk_raw": smooth_nms_topk_raw,
-            "smooth_nms": smooth_nms,
-            "score_candidates_raw": score_candidates_raw,
-            "smooth_nms_topk": smooth_nms_topk,
-            "assemble_dense": assemble_dense,
-            "bias_prelu": bias_prelu}
+    return wrappers()
 
 
 def counted(run):
@@ -1376,6 +1367,72 @@ def main() -> int:
             check(path_launches[path][name] > 0,
                   f"{path} never launched {name}")
 
+    def replayed(path, net, run, kernels):
+        """``path`` three times, as the benchmark's cells call it: eager
+        (through ``drive``), the capture of the backbone's CUDA graph,
+        then a replay with every launch count at 0 just before it, under
+        torch.profiler. Each call's maps (a forward hook on ``net``)
+        equal the eager call's bit for bit; the replay's launch counts
+        equal the eager call's; and the replay's own trace holds each
+        device kernel of ``kernels`` (name -> launches a call): the
+        graph runs it, where the counts only add what the capture
+        recorded. Returns the eager call's result."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from tfpose_tpu_torch.estimator import run_backbone
+
+        def kinds():
+            return (run_backbone.eager, run_backbone.captures,
+                    run_backbone.replays)
+
+        maps = []
+        hook = net.register_forward_hook(
+            lambda m, a, out: maps.append(out["concat_stage7"]))
+        seen = [kinds()]
+        got = drive(path, run)
+        seen.append(kinds())
+        run()
+        torch.cuda.synchronize()
+        seen.append(kinds())
+        # the profiler now and then loses a kernel's records: a replay
+        # again, with the counts at 0 again
+        for attempt in range(4):
+            for fn in wrappers.values():
+                fn.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            counts = {name: fn.launches for name, fn in wrappers.items()}
+            traced = {k: sum(e.count for e in prof.key_averages()
+                             if e.device_type == DeviceType.CUDA
+                             and k in e.key) for k in kernels}
+            if traced == kernels:
+                break
+            log(f"  {path} replay {attempt + 1}: kernels {traced} in its "
+                f"trace, want {kernels}; again")
+        seen.append(kinds())
+        hook.remove()
+        steps = [tuple(b - a for a, b in zip(x, y))
+                 for x, y in zip(seen, seen[1:])]
+        check(steps[:2] == [(1, 0, 0), (0, 1, 0)]
+              and steps[2] == (0, 0, attempt + 1),
+              f"{path}: eager, captures, replays per call {steps}, want "
+              f"an eager call, a capture, then replays")
+        check(counts == path_launches[path],
+              f"{path}: the replay counts {counts}, the eager call "
+              f"{path_launches[path]}")
+        check(traced == kernels, f"{path}: the replay's trace holds "
+              f"{traced}, want {kernels}")
+        check(len(maps) == 3 + attempt and all(
+            torch.equal(m, maps[0]) for m in maps[1:]),
+            f"{path}: the captured or replayed maps differ from the eager "
+            f"call's")
+        log(f"{path}: eager, capture, replay; the replay's maps equal the "
+            f"eager call's bit for bit, its trace holds {traced}, its "
+            f"launch counts {counts}")
+        return got
+
     with phase("4 backbones"):
         v2 = {}
         for name, wh in (("mobilenet_v2_small", (368, 368)),
@@ -1427,8 +1484,10 @@ def main() -> int:
         got1 = drive(CMU_INF, lambda: est_cmu.inference(
             frames656[0], upsample_size=4.0))
         launched(CMU_INF, "smooth_nms")
-        got16 = drive(CMU_BATCH, lambda: est_cmu.inference_batch(
-            frames656, upsample_size=4.0))
+        got16 = replayed(CMU_BATCH, est_cmu.net,
+                         lambda: est_cmu.inference_batch(
+                             frames656, upsample_size=4.0),
+                         {"assemble_kernel": 1})
         launched(CMU_BATCH, "smooth_nms_topk_raw", "score_candidates_raw")
         log(f"humans with random weights: {len(got1)} ({CMU_INF}), "
             f"{[len(h) for h in got16]} ({CMU_BATCH})")
@@ -1493,8 +1552,10 @@ def main() -> int:
                                   device="cpu")
         log(f"body25 estimators (seeded random weights) in "
             f"{time.perf_counter() - t:.2f} s")
-        got25 = drive(B25_BATCH, lambda: est_b25.inference_batch(
-            frames656, upsample_size=4.0))
+        got25 = replayed(B25_BATCH, est_b25.net,
+                         lambda: est_b25.inference_batch(
+                             frames656, upsample_size=4.0),
+                         {"bias_prelu_vec": 99, "assemble_kernel": 1})
         n25 = path_launches[B25_BATCH]
         check(n25["bias_prelu"] == 99 and n25["smooth_nms_topk_raw"] == 1
               and n25["assemble_dense"] == 1 and n25["smooth_nms"] == 0

@@ -604,6 +604,128 @@ def test_profiling_on_the_card(thin368, tmp_path):
     assert card.get_flops() == cpu.get_flops() > 0
 
 
+# ---- the backbone's CUDA graphs (models/graphs.py) behind run_backbone
+
+
+def graph_kinds(net, xs):
+    """``run_backbone`` over ``xs``: the kind of each call (eager,
+    captures, replays) and its maps."""
+    from tfpose_tpu_torch.estimator import run_backbone
+
+    kinds, outs = [], []
+    for x in xs:
+        before = (run_backbone.eager, run_backbone.captures,
+                  run_backbone.replays)
+        outs.append(run_backbone(net, x))
+        after = (run_backbone.eager, run_backbone.captures,
+                 run_backbone.replays)
+        kinds.append(("eager", "captures", "replays")[
+            [a - b for a, b in zip(after, before)].index(1)])
+    return kinds, outs
+
+
+@pytest.mark.parametrize("model, dtype, batch, w, h", [
+    ("mobilenet_thin", torch.float32, 1, 432, 368),
+    ("mobilenet_thin", torch.float32, 16, 432, 368),
+    ("cmu", torch.bfloat16, 2, 656, 368),
+])
+def test_replayed_maps_equal_the_eager_maps(nets, model, dtype, batch, w, h):
+    """Four inputs at one shape: eager, capture, replay, replay; each
+    call's concat_stage7 equals the eager forward's bit for bit (thin
+    with the thin368_coco weights, CMU seeded). The two replays return
+    tensors of their own: the first is still right after the second."""
+    from tfpose_tpu_torch.convert.checkpoint import (
+        load_flax_msgpack,
+        variables_from_numpy,
+    )
+    from tfpose_tpu_torch.estimator import forward_eager
+    from tfpose_tpu_torch.pipeline.preprocess import normalize
+
+    net = get_network(model, dtype)
+    init_weights(net, torch.Generator().manual_seed(0))
+    if model == "mobilenet_thin":
+        variables_from_numpy(net, load_flax_msgpack(CHECKPOINT))
+    net.eval().cuda()
+    g = torch.Generator().manual_seed(7)
+    xs = [normalize(torch.randint(0, 256, (batch, h, w, 3), generator=g,
+                                  dtype=torch.uint8).cuda())
+          for _ in range(4)]
+    want = [forward_eager(net, x) for x in xs]
+    kinds, got = graph_kinds(net, xs)
+    assert kinds == ["eager", "captures", "replays", "replays"]
+    assert got[2].data_ptr() != got[3].data_ptr()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.stride() == b.stride()
+        assert torch.equal(a, b)
+    assert not torch.equal(got[2], got[3])
+
+
+@pytest.mark.parametrize("name", MODEL_NAMES)
+def test_every_network_replays_its_eager_maps(nets, name):
+    """Every network of the registry captures (its forward copies
+    nothing from the host: mobilenet_v2's upsample taps are on the card
+    before the capture) and replays its eager maps bit for bit, fp32 at
+    B=2 160x128 with seeded weights."""
+    from tfpose_tpu_torch.estimator import forward_eager
+    from tfpose_tpu_torch.pipeline.preprocess import normalize
+
+    net = get_network(name)
+    init_weights(net, torch.Generator().manual_seed(0))
+    net.eval().cuda()
+    g = torch.Generator().manual_seed(3)
+    xs = [normalize(torch.randint(0, 256, (2, 128, 160, 3), generator=g,
+                                  dtype=torch.uint8).cuda())
+          for _ in range(3)]
+    want = [forward_eager(net, x) for x in xs]
+    kinds, got = graph_kinds(net, xs)
+    assert kinds == ["eager", "captures", "replays"]
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_replays_read_the_taps_after_the_cache_let_them_go(nets):
+    """mobilenet_v2_small at B=2 160x128: captured, then more new sizes
+    through ``resize_bilinear`` than its cache of taps keeps, on the
+    card, then replays: their maps still equal the eager forward's bit
+    for bit, since the graph holds the taps its capture read."""
+    from tfpose_tpu_torch.estimator import forward_eager
+    from tfpose_tpu_torch.pipeline.preprocess import normalize
+
+    net = get_network("mobilenet_v2_small")
+    init_weights(net, torch.Generator().manual_seed(0))
+    net.eval().cuda()
+    g = torch.Generator().manual_seed(5)
+    xs = [normalize(torch.randint(0, 256, (2, 128, 160, 3), generator=g,
+                                  dtype=torch.uint8).cuda())
+          for _ in range(4)]
+    assert graph_kinds(net, xs[:2])[0] == ["eager", "captures"]
+    for n in range(2, 302):
+        resize.resize_bilinear(torch.rand(1, n, 3, 2, device="cuda"), 5, 7)
+    info = resize._bilinear_taps_on.cache_info()
+    assert info.currsize == info.maxsize < 300
+    kinds, got = graph_kinds(net, xs[2:])
+    assert kinds == ["replays", "replays"]
+    for a, x in zip(got, xs[2:]):
+        assert torch.equal(a, forward_eager(net, x))
+
+
+def test_video_pipeline_at_depth_2_replays_the_backbone(thin368):
+    """Depth 2 on 24 rendered 640x480 frames: past the first frames each
+    forward is a replay on the pipeline's stream while the frame before
+    decodes on the current stream; the humans equal the serial loop's
+    (whose forwards replay on the current stream) bit for bit."""
+    from tfpose_tpu_torch.estimator import run_backbone
+    from tfpose_tpu_torch.pipeline.video import VideoPipeline
+
+    frames = render_frames(np.random.default_rng(65), 24, 480, 640)
+    before = run_backbone.replays
+    got = [h for _, h in VideoPipeline(thin368, 4.0, 2).run(frames)]
+    assert run_backbone.replays - before >= 22
+    want = video_serial(thin368, frames)
+    assert [humans_key(h) for h in got] == [humans_key(h) for h in want]
+    assert sum(len(h) for h in got) > 24
+
+
 # ---- the mesh on the card (parallel/): ranks started by launch; their
 # bodies are top-level functions, since a spawned rank imports this file
 

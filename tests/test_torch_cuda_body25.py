@@ -8,6 +8,8 @@ On the card: ``python -m pytest --noconftest tests/test_torch_cuda_body25.py
 -q``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -217,3 +219,56 @@ def test_bf16_network_against_the_reference(card):
     ratio = float((got - ref).norm() / (low - ref).norm())
     assert got.shape == (4, 23, 41, 78)
     assert 0 < ratio <= 1.5
+
+
+def test_body25_replays_with_k6_inside_the_graph(card):
+    """bf16 BODY_25 at B=2 656x368 (seeded weights) through
+    ``inference_batch``, three calls: eager, capture, replay. Each call's
+    maps equal the eager forward's bit for bit, with K6 inside the
+    graph, and each call counts 99 ``bias_prelu`` and one
+    ``assemble_dense`` launches, the replay's added by the graph; the
+    replay's own trace (torch.profiler) holds the 99 K6 kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tfpose_tpu_torch.estimator import (
+        TfPoseEstimator,
+        forward_eager,
+        run_backbone,
+    )
+    from tfpose_tpu_torch.ops.kernels.bias_prelu import bias_prelu as k6
+    from tfpose_tpu_torch.pipeline.preprocess import prepare
+
+    est = TfPoseEstimator("body25", target_size=(656, 368),
+                          dtype="bfloat16", params_path="no-checkpoint",
+                          device="cuda")
+    rng = np.random.default_rng(25)
+    frames = [rng.integers(0, 256, (2, 368, 656, 3), np.uint8)
+              for _ in range(3)]
+    want = [forward_eager(est.net, prepare(torch.from_numpy(f).cuda(),
+                                           368, 656)) for f in frames]
+    maps = []
+    est.net.register_forward_hook(
+        lambda m, a, out: maps.append(out["concat_stage7"]))
+    kinds, counts = [], []
+    for i, f in enumerate(frames):
+        before = (run_backbone.eager, run_backbone.captures,
+                  run_backbone.replays)
+        k6.launches = assemble_dense.launches = 0
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof if i == 2 else contextlib.nullcontext():
+            est.inference_batch(list(f), upsample_size=4.0)
+            torch.cuda.synchronize()
+        counts.append((k6.launches, assemble_dense.launches))
+        after = (run_backbone.eager, run_backbone.captures,
+                 run_backbone.replays)
+        kinds.append(("eager", "captures", "replays")[
+            [a - b for a, b in zip(after, before)].index(1)])
+    assert kinds == ["eager", "captures", "replays"]
+    assert counts == [(99, 1)] * 3
+    assert sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and "bias_prelu_vec" in e.key) == 99
+    assert len(maps) == 3
+    for got, w in zip(maps, want):
+        assert torch.equal(got.float(), w)

@@ -22,6 +22,7 @@ given peaks and maps.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -39,6 +40,7 @@ from tfpose_tpu_torch.core.types import BodyPart, Human, PoseArrays
 from tfpose_tpu_torch.models import (
     get_checkpoint_path,
     get_network,
+    graphs,
     skeleton_of,
 )
 from tfpose_tpu_torch.models.layers import init_weights
@@ -70,16 +72,39 @@ logger = logging.getLogger("TfPoseEstimator")
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def run_backbone(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """Normalized (N, H, W, 3) on the device -> ``net``'s concat_stage7
-    (N, H/8, W/8, C) as fp32, under inference mode with cuDNN's TF32
-    off: an fp32 network computes in true fp32, a bf16 one casts its
-    input to bf16 itself and its maps come back cast to fp32."""
+@contextlib.contextmanager
+def _inference():
+    """Inference mode with cuDNN's TF32 off."""
     cudnn = torch.backends.cudnn
     with torch.inference_mode(), cudnn.flags(
             enabled=cudnn.enabled, benchmark=cudnn.benchmark,
             deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+def forward_eager(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """Normalized (N, H, W, 3) on the device -> ``net``'s concat_stage7
+    (N, H/8, W/8, C) as fp32, op by op, under inference mode with cuDNN's
+    TF32 off: an fp32 network computes in true fp32, a bf16 one casts its
+    input to bf16 itself and its maps come back cast to fp32. The
+    profiles time this path: their per-op tables need the ops' host
+    names, which a replay does not have."""
+    with _inference():
         return net(x)["concat_stage7"].float()
+
+
+def run_backbone(net: torch.nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """:func:`forward_eager`'s maps, computed eagerly or by a replay of
+    the CUDA graph captured at ``x``'s shape (``models/graphs.py`` says
+    when). ``run_backbone.captures``, ``.replays`` and ``.eager`` count
+    the calls of each kind."""
+    with _inference():
+        kind, out = graphs.forward(net, x)
+        setattr(run_backbone, kind, getattr(run_backbone, kind) + 1)
+        return out["concat_stage7"].float()
+
+
+run_backbone.captures = run_backbone.replays = run_backbone.eager = 0
 
 
 class PoseEstimator:

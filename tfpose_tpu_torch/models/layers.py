@@ -57,6 +57,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tfpose_tpu_torch.models import graphs
 from tfpose_tpu_torch.ops.kernels.bias_prelu import bias_prelu
 from tfpose_tpu_torch.parallel import halo
 
@@ -230,9 +231,11 @@ def set_quant_mode(net: nn.Module, mode: str) -> nn.Module:
     """Put every conv of ``net`` in quantisation mode ``mode`` (one of
     ``QUANT_MODES``). Leaving ``"none"`` gives each conv a zero
     ``in_absmax`` buffer (kept if it has one); ``"none"`` removes them, so
-    the state dict is the fp32 tree's again."""
+    the state dict is the fp32 tree's again. Drops ``net``'s CUDA graphs
+    (``models/graphs.py``)."""
     if mode not in QUANT_MODES:
         raise ValueError(f"quant must be one of {QUANT_MODES}, got {mode!r}")
+    graphs.drop(net)
     for mod in net.modules():
         if not isinstance(mod, SameConv2d):
             continue
@@ -319,7 +322,8 @@ def batch_norm(features: int) -> BatchNorm:
 
 def set_compute_dtype(net: nn.Module, dtype: torch.dtype) -> nn.Module:
     """Make ``dtype`` the network's compute type: its input cast and
-    every BatchNorm's output type."""
+    every BatchNorm's output type. Drops ``net``'s CUDA graphs."""
+    graphs.drop(net)
     net.dtype = dtype
     for mod in net.modules():
         if isinstance(mod, BatchNorm):

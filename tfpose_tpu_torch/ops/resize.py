@@ -99,11 +99,32 @@ def _bilinear_taps_np(in_size: int, out_size: int):
     return taps[:, 0], taps[:, 1], wts[:, 0], wts[:, 1]
 
 
+@functools.lru_cache(maxsize=256)
+def _bilinear_taps_on(in_size: int, out_size: int, device: torch.device):
+    """:func:`_bilinear_taps_np` on ``device``, copied there once (outside
+    inference mode, so that training may save them for its backward): a
+    forward captured as a CUDA graph (``models/graphs.py``) may not copy
+    from the host."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(a).to(device)
+                     for a in _bilinear_taps_np(in_size, out_size))
+
+
+def _bilinear_taps(in_size: int, out_size: int, device: torch.device):
+    """:func:`_bilinear_taps_on`'s tables, held by a CUDA graph being
+    captured: its replays read them after the cache has let them go."""
+    from tfpose_tpu_torch.models import graphs  # the models import this
+
+    taps = _bilinear_taps_on(in_size, out_size, device)
+    graphs.hold(*taps)
+    return taps
+
+
 def _two_taps(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
     """``x[i0] * w0 + x[i1] * w1`` along ``dim``, each op rounded on its
     own: the same bits on every device, where a matrix product's sum
-    order is the library's."""
-    i0, i1, w0, w1 = (torch.from_numpy(a).to(x.device) for a in taps)
+    order is the library's. ``taps``: (i0, i1, w0, w1) on x's device."""
+    i0, i1, w0, w1 = taps
     shape = [1] * x.dim()
     shape[dim] = -1
     return (x.index_select(dim, i0) * w0.view(shape)
@@ -122,7 +143,7 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     *_, h, w, _ = x.shape
     rows = halo.current_rows()
     if rows is None:
-        x = _two_taps(x.float(), _bilinear_taps_np(h, out_h), -3)
+        x = _two_taps(x.float(), _bilinear_taps(h, out_h, x.device), -3)
     else:
         in_rows, out_rows = rows.rows_at(w), rows.rows_at(out_w)
         i0, i1, w0, w1 = _bilinear_taps_np(in_rows, out_rows)
@@ -135,9 +156,9 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
                   int(i1[b[r]:b[r + 1]].max()) + 1) for r in range(rows.n)]
         x = halo.fetch(x.float(), rows, -3, in_rows, needs)
         lo = needs[rows.index][0]
-        x = _two_taps(x, (i0[o0:o1] - lo, i1[o0:o1] - lo, w0[o0:o1],
-                          w1[o0:o1]), -3)
-    return _two_taps(x, _bilinear_taps_np(w, out_w), -2)
+        x = _two_taps(x, tuple(torch.from_numpy(a).to(x.device) for a in (
+            i0[o0:o1] - lo, i1[o0:o1] - lo, w0[o0:o1], w1[o0:o1])), -3)
+    return _two_taps(x, _bilinear_taps(w, out_w, x.device), -2)
 
 
 @functools.lru_cache(maxsize=256)

@@ -16,6 +16,10 @@ the traced calls (``call_event_durations_ms``).
 The JAX script's ``cost_analysis_bytes_gb`` was XLA's bytes-accessed
 estimate and has no counterpart here.
 
+The forward timed is the eager one (``estimator.forward_eager``), op by
+op, never a replay of ``run_backbone``'s CUDA graph, whose ops have no
+host names.
+
     tfpose-torch-profile forward [--quick] [--dtype float32]
 
 Every number needs the card: on the CPU the timers raise.
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from tfpose_tpu_torch.cli.common import add_device_flag
-from tfpose_tpu_torch.estimator import _DTYPES, run_backbone
+from tfpose_tpu_torch.estimator import _DTYPES, forward_eager
 from tfpose_tpu_torch.models import get_network
 from tfpose_tpu_torch.models.layers import init_weights
 from tfpose_tpu_torch.pipeline.preprocess import normalize
@@ -65,7 +69,7 @@ def forward_flops(net, x: torch.Tensor) -> int:
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as counter:
-        run_backbone(net, normalize(x))
+        forward_eager(net, normalize(x))
     return int(counter.get_total_flops())
 
 
@@ -90,7 +94,7 @@ def profile_forward(model: str, w: int, h: int, batch: int,
         0, 255, (batch, h, w, 3), np.uint8)).to(device)
 
     def fwd(x):
-        return run_backbone(net, normalize(x))
+        return forward_eager(net, normalize(x))
 
     flops = forward_flops(net, img)
     with tempfile.TemporaryDirectory() as log_dir:

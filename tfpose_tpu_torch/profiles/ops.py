@@ -11,8 +11,9 @@ the warm-up) is summed by name, per call whose records the trace holds,
 and grouped into buckets by the kernel's name alone (:func:`bucket`):
 ``conv``, ``data-movement``, ``fusion`` (elementwise work and
 BatchNorm), ``matmul`` and ``other``. The JAX script's ``program_ms``
-(XLA's whole-program events) has no counterpart: PyTorch launches op by
-op.
+(XLA's whole-program events) has no counterpart: the forward timed is
+the eager one (``estimator.forward_eager``), launched op by op, never a
+replay of ``run_backbone``'s CUDA graph, whose ops have no host names.
 
     tfpose-torch-profile ops [--model cmu] [--batch 8] [--runs 8] [--json]
 
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 
 from tfpose_tpu_torch.cli.common import add_device_flag
-from tfpose_tpu_torch.estimator import run_backbone
+from tfpose_tpu_torch.estimator import forward_eager
 from tfpose_tpu_torch.pipeline.preprocess import normalize
 from tfpose_tpu_torch.profiles.forward import seeded_network
 from tfpose_tpu_torch.utils.profiling import (
@@ -92,7 +93,7 @@ def profile_ops(model: str = "cmu", w: int = 656, h: int = 368,
     x = torch.from_numpy(np.random.default_rng(0).integers(
         0, 255, (batch, h, w, 3), np.uint8)).to(device)
     with tempfile.TemporaryDirectory() as log_dir:
-        p50 = device_p50_ms(lambda t: run_backbone(net, normalize(t)), (x,),
+        p50 = device_p50_ms(lambda t: forward_eager(net, normalize(t)), (x,),
                             n_runs=runs, log_dir=log_dir)
         durations, calls = call_event_durations_ms(log_dir)
     return {"model": model, "batch": batch, "hw": f"{w}x{h}",

@@ -14,8 +14,10 @@ launched in the ranges (matched by correlation id,
 ``call_device_events``), idle in the rest. Each idle interval goes to
 the innermost span the host was in, by exact overlap (:data:`NONE`
 outside every span), so the shares add up to the window's idle share.
-Per span: its idle share of the window, how often it opened a call, and
-the device ms a call of the work launched inside it.
+Per span that opened or held idle time: its idle share of the window,
+how often it opened a call (``model.replay`` once a call where the
+backbone's CUDA graph replays), and the device ms a call of the work
+launched inside it.
 
     tfpose-torch-profile spans [--model mobilenet_thin] [--resize 432x368]
         [--batch 1] [--dtype float32] [--params PATH] [--calls 10] [--json]
@@ -194,11 +196,13 @@ def profile_spans(model: str = "mobilenet_thin", w: int = 432,
     torch.cuda.synchronize()
     doc = idle_by_span(record(call, n_calls))
     n = doc["calls"]
+    idle = {name: doc["idle_s"].get(name, 0.0)
+            for name in {*doc["idle_s"], *doc["count"]}}
     rows = [{"span": name, "idle_pct": 100.0 * s / doc["window_s"],
              "per_call": doc["count"].get(name, 0) / n,
              "device_ms_per_call": 1e3 * doc["device_s"].get(name, 0.0) / n}
-            for name, s in sorted(doc["idle_s"].items(),
-                                  key=lambda kv: -kv[1])]
+            for name, s in sorted(idle.items(),
+                                  key=lambda kv: (-kv[1], kv[0]))]
     return {"model": model, "size": f"{w}x{h}", "batch": batch,
             "dtype": dtype, "calls": n,
             "call_ms": 1e3 * doc["window_s"] / n,
