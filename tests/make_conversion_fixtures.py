@@ -1,5 +1,5 @@
-"""Write the conversion fixtures that the port's tests and
-``chip_smoke.py`` phase 10 read (run once; committed output under
+"""Write the conversion fixtures that the port's tests, on the CPU and
+on the card, read (run once; committed output under
 ``tests/fixtures/``). The card machine has neither protobuf nor
 TensorFlow, so these are bytes that the JAX package's writer and
 TensorFlow wrote, for the port's own codecs to read there.

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import assembly_inputs, walk_branches, walk_case
+from torch_cases import assembly_inputs, walk_branches, walk_case
 from tfpose_tpu_torch.core.config import DecodeParams
 from tfpose_tpu_torch.ops.assemble import (
     Assembled,

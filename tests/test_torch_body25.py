@@ -16,7 +16,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from chip_smoke import (
+from torch_cases import (
     BODY25_PEOPLE,
     BODY25_POSE,
     body25_maps,

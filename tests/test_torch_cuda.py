@@ -1,9 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked ``cuda``: without a card they skip (the decision is made inside
-the fixture, so every worker collects the same tests). On the card,
-whose Python has no jax for ``tests/conftest.py``:
-``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
+the fixture, ``torch_cases.card``, so every worker collects the same
+tests; a machine with an NVIDIA device that torch cannot reach fails). On the card,
+whose Python has no jax for ``tests/conftest.py``, with the other card
+tests: ``python -m pytest --noconftest -m cuda tests/test_torch_cuda*.py
+--deselect tests/test_torch_cuda_mesh.py -q -rs``.
 """
 
 import os
@@ -13,9 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (
+import torch_cases
+from torch_cases import (
     CHECKPOINT,
     assembly_inputs,
+    counted,
     heat8_of,
     humans_key,
     k1_phase_reference,
@@ -26,6 +30,7 @@ from chip_smoke import (
     peaks_of,
     planes_up,
     render_frames,
+    same_human_lists,
     same_persons,
     scene_nets,
     video_serial,
@@ -64,8 +69,7 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture(scope="module")
 def nets():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    torch_cases.card()
     torch.backends.cudnn.allow_tf32 = False
     rng = np.random.default_rng(0)
     scenes = [synthetic.render_scene(rng, n, 46, 54)[0] for n in (3, 0, 5)]
@@ -110,6 +114,28 @@ def test_topk_raw_kernel_on_a_plateau(nets, cap):
     s1, i1 = k1_phase_reference(x, 4, 4, 128, 0.05)
     assert torch.equal(i, i1) and torch.equal(s, s1)
     assert bool((i[0] >= 0).all()) and bool((i[1] == -1).all())
+
+
+@pytest.mark.parametrize("k", [32, 128])
+@pytest.mark.parametrize("cap", [4096, 16])
+def test_topk_kernels_on_noise(nets, k, cap):
+    """Gaussian noise, whose peaks outnumber a ``cap`` of 16 (the
+    radix-select path; K4's cap is at least K) and can fill K: the
+    raw-grid top-K on 46x54x18 (indices exact, scores rtol 1e-5, and bit
+    for bit against its phase arithmetic) and the full-resolution one on
+    360x640x18 (indices exact, scores 1e-6)."""
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(0, 0.3, (46, 54, 18)).astype(
+        np.float32)).to(nets.device)
+    s, i = smooth_nms_topk_raw(x, 4, 4, k, 0.05, cap=cap)
+    s0, i0 = smooth_nms_topk_raw_plain(x, 4, 4, k, 0.05)
+    assert torch.equal(i, i0)
+    torch.testing.assert_close(s, s0, rtol=1e-5, atol=0)
+    assert all(map(torch.equal, (s, i), k1_phase_reference(x, 4, 4, k, 0.05)))
+    x = torch.from_numpy(rng.normal(0.1, 0.3, (360, 640, 18)).astype(
+        np.float32)).to(nets.device)
+    k4_compare(smooth_nms_topk(x, k, 0.05, cap=max(cap, k)),
+               smooth_nms_topk_plain(x, k, 0.05))
 
 
 @pytest.fixture(scope="module")
@@ -329,8 +355,7 @@ def test_assemble_kernel_walks_every_branch(nets):
 
 @pytest.fixture(scope="module")
 def thin368(nets):
-    return TfPoseEstimator("mobilenet_thin", target_size=(432, 368),
-                           params_path=CHECKPOINT)
+    return torch_cases.thin368("cuda")
 
 
 def test_decode_is_deterministic_on_the_card(thin368):
@@ -350,32 +375,59 @@ def test_decode_is_deterministic_on_the_card(thin368):
     assert bool(runs[0].human_valid.any())
 
 
-def test_video_pipeline_streams_equal_the_serial_loop(thin368):
-    """Depth 3 on 64 rendered 640x480 frames: the forwards on their own
-    stream, the decodes on the current one; the humans equal the serial
-    loop's bit for bit."""
-    from tfpose_tpu_torch.pipeline.video import VideoPipeline
+@pytest.fixture(scope="module")
+def video(thin368):
+    """64 rendered 640x480 frames, the card's serial loop, and the CPU's
+    serial loop on the card's resized frames (the card's area downscale
+    may differ from the CPU's by a grey level, which moves a score by
+    more than the forward and decode do)."""
+    from tfpose_tpu_torch.pipeline.preprocess import resize_u8
 
     frames = render_frames(np.random.default_rng(64), 64, 480, 640)
-    got = [h for _, h in VideoPipeline(thin368, 4.0, 3).run(frames)]
-    want = video_serial(thin368, frames)
-    assert [humans_key(h) for h in got] == [humans_key(h) for h in want]
-    assert sum(len(h) for h in got) > 64
+    resized = [resize_u8(torch.from_numpy(f).cuda(), 368, 432).cpu().numpy()
+               for f in frames]
+    return (frames, video_serial(thin368, frames),
+            video_serial(torch_cases.thin368("cpu"), resized))
 
 
-def test_service_with_concurrent_clients_at_max_batch_8(thin368):
-    """Four client threads, eight requests each, at ``max_batch=8``:
-    every reply equals ``humans_to_msg`` of the serial estimator's
-    ``inference_batch`` humans for its frame (x, y 1e-6, confidence
-    1e-4)."""
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_video_pipeline_streams_equal_the_serial_loop(thin368, video, depth):
+    """From depth 2 the forwards run on the pipeline's own stream, the
+    decodes on the current one; every forward past the first frames
+    replays the backbone's graph that the serial loop captured. The
+    humans equal the serial loop's bit for bit and the CPU's (coords
+    1e-6, scores 1e-4), through K1 and K3."""
+    from tfpose_tpu_torch.estimator import run_backbone
+    from tfpose_tpu_torch.pipeline.video import VideoPipeline
+
+    frames, serial, cpu = video
+    before = run_backbone.replays
+    got, counts = counted(lambda: [
+        h for _, h in VideoPipeline(thin368, 4.0, depth).run(frames)])
+    assert run_backbone.replays - before >= len(frames) - 2
+    assert counts["smooth_nms_topk_raw"] > 0, counts
+    assert counts["score_candidates_raw"] > 0, counts
+    assert [humans_key(h) for h in got] == [humans_key(h) for h in serial]
+    assert sum(len(h) for h in got) > len(frames)
+    same_human_lists(got, cpu, f"video depth {depth}")
+
+
+@pytest.mark.parametrize("max_batch", [1, 8])
+def test_service_with_concurrent_clients(thin368, max_batch):
+    """Four client threads, eight requests each, raw frames: every reply
+    equals ``humans_to_msg`` of the serial estimator's humans for its
+    frame (x, y 1e-6, confidence 1e-4): ``inference``'s through K2 at
+    ``max_batch`` 1, ``inference_batch``'s through K1 and K3 at 8."""
     from tfpose_tpu_torch.serving import (
         PoseClient, PoseService, humans_to_msg)
 
     imgs = render_frames(np.random.default_rng(4), 8, 368, 432)
-    want = [humans_to_msg(h, 432, 368)
-            for h in thin368.inference_batch(imgs, upsample_size=4.0)]
-    svc = PoseService(thin368, port=0, upsample_size=4.0, max_batch=8,
-                      max_wait_ms=20.0)
+    humans = ([thin368.inference(i, upsample_size=4.0) for i in imgs]
+              if max_batch == 1 else
+              thin368.inference_batch(imgs, upsample_size=4.0))
+    want = [humans_to_msg(h, 432, 368) for h in humans]
+    svc = PoseService(thin368, port=0, upsample_size=4.0,
+                      max_batch=max_batch, max_wait_ms=20.0)
     addr = svc.start()
     replies, errors = {}, []
 
@@ -389,19 +441,27 @@ def test_service_with_concurrent_clients_at_max_batch_8(thin368):
         except Exception as exc:  # reported below
             errors.append(exc)
 
-    try:
+    def clients():
         threads = [threading.Thread(target=client, args=(t,))
                    for t in range(4)]
         for th in threads:
             th.start()
         for th in threads:
             th.join(timeout=300)
+        return threads
+
+    try:
+        threads, counts = counted(clients)
         assert not any(th.is_alive() for th in threads)
         assert not errors and len(replies) == 32
-        sizes = svc._batcher.batch_sizes
-        assert sum(k * v for k, v in sizes.items()) == 32
+        if max_batch > 1:
+            sizes = svc._batcher.batch_sizes
+            assert sum(k * v for k, v in sizes.items()) == 32
     finally:
         svc.stop()
+    for k in (("smooth_nms",) if max_batch == 1 else
+              ("smooth_nms_topk_raw", "score_candidates_raw")):
+        assert counts[k] > 0, counts
     for (t, i), (k, msg) in replies.items():
         same_persons(msg, want[k], f"client {t} request {i}")
 
@@ -463,49 +523,83 @@ def test_int8_accumulators_on_the_card_equal_int64(nets):
     assert torch.equal(got, int_conv2d(xd, wd, (2, 2), groups=96))
 
 
-@pytest.mark.parametrize("name", MODEL_NAMES)
+@pytest.mark.parametrize("name", [*MODEL_NAMES, "thin368_coco"])
 def test_int8_forward_on_the_card_equals_the_cpu(nets, name):
     """Seeded random weights (BN statistics away from identity) at
-    96x128 (CMU at 64x96), calibrated on the card: the calibration
-    within rtol 1e-5 of the CPU's, and with the card's calibration in
-    both, the int8 ``concat_stage7`` of the card equal to the CPU's bit
-    for bit: integer accumulators, and every float op (quantise,
-    rescale, BatchNorm one op at a time) rounded alike."""
+    96x128 (CMU at 64x96), calibrated on the card; and thin368_coco's
+    estimator at 432x368 with ``quantize=True`` (its 143 convs calibrated
+    as it is built). The calibration within rtol 1e-5 of the CPU's, and
+    with the card's calibration in both, the int8 ``concat_stage7`` of
+    the card equal to the CPU's bit for bit: integer accumulators, and
+    every float op (quantise, rescale, BatchNorm one op at a time)
+    rounded alike. thin368_coco's ``inference`` x8 (K2) and
+    ``inference_batch`` B=8 (K1, K3) then give the CPU's humans, and its
+    AP50 on 50 rendered scenes is at least 0.6
+    (``tests/test_quantize.py``'s gate)."""
     from tfpose_tpu_torch.convert.checkpoint import (
         variables_from_numpy, variables_to_numpy)
+    from tfpose_tpu_torch.evaluation.coco_eval import synthetic_e2e
     from tfpose_tpu_torch.models.quantize import (
         calibrate, default_calibration_images)
     from tfpose_tpu_torch.models.layers import set_quant_mode
 
-    h, w = (64, 96) if name == "cmu" else (96, 128)
-    gen = torch.Generator().manual_seed(5)
-    net = init_weights(get_network(name), gen).eval()
-    with torch.no_grad():
-        for mod in net.modules():
-            if isinstance(mod, torch.nn.BatchNorm2d):
-                mod.running_mean.normal_(0, 0.1, generator=gen)
-                mod.running_var.uniform_(0.5, 1.5, generator=gen)
-    cpu = get_network(name).eval()
-    cpu.load_state_dict(net.state_dict())
-    imgs = default_calibration_images((w, h), n=2)
-    card = net.cuda()
-    q_card = calibrate(card, imgs)
-    q_cpu = calibrate(cpu, imgs)
+    if name == "thin368_coco":
+        kw = dict(target_size=(432, 368), params_path=CHECKPOINT,
+                  quantize=True)
+        est = {d: TfPoseEstimator("mobilenet_thin", device=d, **kw)
+               for d in ("cuda", "cpu")}
+        net = {d: e.net for d, e in est.items()}
+        quant = {d: variables_to_numpy(n)["quant"] for d, n in net.items()}
+        imgs = render_frames(np.random.default_rng(7), 8, 368, 432)
+
+        def forward(d):
+            return est[d]._forward(np.stack(imgs), 368, 432)
+    else:
+        h, w = (64, 96) if name == "cmu" else (96, 128)
+        gen = torch.Generator().manual_seed(5)
+        card = init_weights(get_network(name), gen).eval()
+        with torch.no_grad():
+            for mod in card.modules():
+                if isinstance(mod, torch.nn.BatchNorm2d):
+                    mod.running_mean.normal_(0, 0.1, generator=gen)
+                    mod.running_var.uniform_(0.5, 1.5, generator=gen)
+        net = {"cpu": get_network(name).eval()}
+        net["cpu"].load_state_dict(card.state_dict())
+        net["cuda"] = card.cuda()
+        cal = default_calibration_images((w, h), n=2)
+        quant = {d: calibrate(n, cal) for d, n in net.items()}
+        x = torch.from_numpy(np.random.default_rng(2).uniform(
+            -0.5, 0.5, (2, h, w, 3)).astype(np.float32))
+
+        def forward(d):
+            return net[d](x.to(d))["concat_stage7"]
 
     def leaves(t):
-        return [v for x in t.values() for v in (
+        return [float(v) for x in t.values() for v in (
             leaves(x) if isinstance(x, dict) else [x])]
 
-    np.testing.assert_allclose(leaves(q_card), leaves(q_cpu), rtol=1e-5)
-    variables_from_numpy(cpu, dict(variables_to_numpy(card)))
-    set_quant_mode(card, "int8")
-    set_quant_mode(cpu, "int8")
-    x = torch.from_numpy(np.random.default_rng(2).uniform(
-        -0.5, 0.5, (2, h, w, 3)).astype(np.float32))
+    assert name != "thin368_coco" or len(leaves(quant["cuda"])) == 143
+    np.testing.assert_allclose(leaves(quant["cuda"]), leaves(quant["cpu"]),
+                               rtol=1e-5)
+    variables_from_numpy(net["cpu"], dict(variables_to_numpy(net["cuda"])))
+    for n in net.values():
+        set_quant_mode(n, "int8")
     with torch.no_grad():
-        want = cpu(x)["concat_stage7"]
-        got = card(x.cuda())["concat_stage7"].cpu()
+        want = forward("cpu")
+        got = forward("cuda").cpu()
     assert torch.equal(got, want), (got - want).abs().max().item()
+    if name != "thin368_coco":
+        return
+    for run, must, never in (
+            (lambda e: [e.inference(i, upsample_size=4.0) for i in imgs],
+             ("smooth_nms",), ("smooth_nms_topk_raw", "score_candidates_raw")),
+            (lambda e: e.inference_batch(imgs, upsample_size=4.0),
+             ("smooth_nms_topk_raw", "score_candidates_raw"), ("smooth_nms",))):
+        got, counts = counted(lambda: run(est["cuda"]))
+        assert all(counts[k] for k in must) and not any(
+            counts[k] for k in never), counts
+        same_human_lists(got, run(est["cpu"]), "int8")
+    assert synthetic_e2e(est["cuda"], 50, 432, 368)[0]["AP50"] >= 0.6
 
 
 def test_train_step_on_the_card_matches_the_cpu(nets):
@@ -565,6 +659,7 @@ def test_datum_records_train_on_the_card(nets, tmp_path):
                             "--input-size", "64x80", "--batchsize", "4",
                             "--max-steps", "1", "--log-every", "1"])
     assert state.step == 1 and next(state.net.parameters()).is_cuda
+    assert np.isfinite(state.history[0]["loss"])
 
 
 def test_graphdef_consts_to_the_card(nets):
@@ -575,15 +670,24 @@ def test_graphdef_consts_to_the_card(nets):
     consts = graphdef.extract_consts(graphdef.load_graphdef(
         os.path.join(_FIXTURES, "graphdef_tf.pb")))
     expected = np.load(os.path.join(_FIXTURES, "graphdef_tf.npz"))
-    for i, name in enumerate(str(n) for n in expected["names"]):
+    names = [str(n) for n in expected["names"]]
+    assert sorted(consts) == sorted(names)
+    for i, name in enumerate(names):
         back = torch.from_numpy(consts[name]).cuda().cpu().numpy()
-        assert back.tobytes() == expected[f"a{i}"].tobytes(), name
+        want = expected[f"a{i}"]
+        assert back.dtype == want.dtype and back.shape == want.shape, name
+        assert back.tobytes() == want.tobytes(), name
 
 
 def test_profiling_on_the_card(thin368, tmp_path):
     """``trace`` lists K2's kernel and cuDNN's convs by name; the device
-    timers give positive times; ``get_flops`` equals the CPU's."""
+    timers give positive times; ``device_p50_ms`` (each call's
+    device-busy time, traced) of the thin forward is at most 1.1 times
+    the CUDA-event median of the call at B=1 (host-bound) and within a
+    factor 1.5 of it at B=32 (device-bound); ``get_flops`` equals the
+    CPU's."""
     from tfpose_tpu_torch.estimator import run_backbone
+    from tfpose_tpu_torch.pipeline.preprocess import prepare
     from tfpose_tpu_torch.utils import profiling
 
     img = render_frames(np.random.default_rng(3), 1, 368, 432)[0]
@@ -591,6 +695,8 @@ def test_profiling_on_the_card(thin368, tmp_path):
         thin368.inference(img, upsample_size=4.0)
     durs = profiling.device_event_durations_ms(str(tmp_path))
     assert any("smooth_nms_kernel" in k for k in durs)
+    assert any(w in k.lower() for k in durs
+               for w in ("conv", "fprop", "implicit_gemm", "cudnn"))
     assert profiling.device_event_durations_ms(str(tmp_path), "zz") == {}
     x = torch.zeros(1, 368, 432, 3, device="cuda")
     p50 = profiling.device_p50_ms(lambda t: run_backbone(thin368.net, t),
@@ -598,6 +704,25 @@ def test_profiling_on_the_card(thin368, tmp_path):
     am = profiling.amortized_ms(lambda t: t.sum(), torch.ones(
         8, 1024, device="cuda"))
     assert 0 < p50 < 1e3 and am > 0
+
+    def events_median(x, reps):
+        per = []
+        for _ in range(reps + 2):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            run_backbone(thin368.net, x)
+            b.record()
+            b.synchronize()
+            per.append(a.elapsed_time(b))
+        return float(np.median(per[2:]))
+
+    imgs = render_frames(np.random.default_rng(7), 8, 368, 432)
+    for b, bound in ((1, (0, 1.1)), (32, (1 / 1.5, 1.5))):
+        x = prepare(torch.from_numpy(np.stack((imgs * 4)[:b])).cuda(), 368,
+                    432)
+        p50 = profiling.device_p50_ms(lambda t: run_backbone(thin368.net, t),
+                                      (x,), n_runs=10)
+        assert bound[0] <= p50 / events_median(x, 10) <= bound[1]
     cpu = TfPoseEstimator("mobilenet_thin", target_size=(96, 80),
                           device="cpu")
     card = TfPoseEstimator("mobilenet_thin", target_size=(96, 80))
@@ -709,23 +834,6 @@ def test_replays_read_the_taps_after_the_cache_let_them_go(nets):
         assert torch.equal(a, forward_eager(net, x))
 
 
-def test_video_pipeline_at_depth_2_replays_the_backbone(thin368):
-    """Depth 2 on 24 rendered 640x480 frames: past the first frames each
-    forward is a replay on the pipeline's stream while the frame before
-    decodes on the current stream; the humans equal the serial loop's
-    (whose forwards replay on the current stream) bit for bit."""
-    from tfpose_tpu_torch.estimator import run_backbone
-    from tfpose_tpu_torch.pipeline.video import VideoPipeline
-
-    frames = render_frames(np.random.default_rng(65), 24, 480, 640)
-    before = run_backbone.replays
-    got = [h for _, h in VideoPipeline(thin368, 4.0, 2).run(frames)]
-    assert run_backbone.replays - before >= 22
-    want = video_serial(thin368, frames)
-    assert [humans_key(h) for h in got] == [humans_key(h) for h in want]
-    assert sum(len(h) for h in got) > 24
-
-
 # ---- the mesh on the card (parallel/): ranks started by launch; their
 # bodies are top-level functions, since a spawned rank imports this file
 
@@ -767,17 +875,6 @@ def _halo_rank_on_the_card():
     return out
 
 
-def _nccl_rank():
-    import torch.distributed as dist
-
-    from tfpose_tpu_torch.parallel.mesh import make_mesh
-
-    mesh = make_mesh()
-    t = torch.arange(5, dtype=torch.float32, device=mesh.device)
-    dist.all_reduce(t, group=mesh.world)
-    return dist.get_backend(), mesh.shape, str(mesh.device), t.cpu().numpy()
-
-
 def test_halo_exchange_on_the_card_over_gloo(nets):
     """Two gloo ranks sharing the card, CUDA tensors: forward and
     gradient within 1e-5 of the largest value (cuDNN sums a block's
@@ -788,15 +885,3 @@ def test_halo_exchange_on_the_card_over_gloo(nets):
                       timeout=120):
         for name, (fwd, grad) in out.items():
             assert fwd <= 1e-5 and grad <= 1e-5, (name, fwd, grad)
-
-
-def test_nccl_all_reduce_with_one_rank(nets):
-    """NCCL initialises with one rank on the card, ``make_mesh()`` takes
-    the visible card, and an ``all_reduce`` runs on its stream."""
-    from tfpose_tpu_torch.parallel.mesh import launch
-
-    (backend, shape, device, t), = launch(_nccl_rank, 1, ["cuda:0"], "nccl",
-                                          timeout=120)
-    assert backend == "nccl" and device == "cuda:0"
-    assert shape == {"data": 1, "spatial": 1}
-    np.testing.assert_array_equal(t, np.arange(5, dtype=np.float32))

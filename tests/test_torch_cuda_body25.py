@@ -3,9 +3,10 @@ K5 with BODY_25's 25 parts and 26 limbs against theirs, the decode of
 planted people against the CPU's, and the bf16 network against the
 benchmark's plain reference.
 
-Marked ``cuda``: without a card they skip (decided inside the fixture).
-On the card: ``python -m pytest --noconftest tests/test_torch_cuda_body25.py
--q``.
+Marked ``cuda``: without a card they skip (decided inside the fixture,
+``torch_cases.card``).
+On the card they run with the other card tests (README.md, "PyTorch / CUDA
+port").
 """
 
 import contextlib
@@ -14,10 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (
-    BODY25_PEOPLE,
+import torch_cases
+from torch_cases import (
     assembly_inputs,
-    body25_maps,
+    body25_scenes,
+    counted,
     k1_phase_reference,
     k3_compare,
     k5_compare,
@@ -56,23 +58,14 @@ H8, W8 = 46, 82
 
 @pytest.fixture(scope="module")
 def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+    dev = torch_cases.card()
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda:0")
+    return dev
 
 
 @pytest.fixture(scope="module")
 def scenes(card):
-    """16 planted BODY_25 scenes (46x82 maps): the three people of
-    ``BODY25_PEOPLE`` shifted along the frame, some dropped."""
-    out = []
-    for i in range(16):
-        people = [(((nx + i) % 70 + 6, ny), dp, dl)
-                  for j, ((nx, ny), dp, dl) in enumerate(BODY25_PEOPLE)
-                  if (i + j) % 4]
-        out.append(body25_maps(people))
-    return torch.from_numpy(np.stack(out)).to(card)
+    return torch.from_numpy(body25_scenes()).to(card)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -186,10 +179,14 @@ def test_k5_with_25_parts(scenes, card):
 
 
 def test_decode_on_the_card_equals_the_cpu(scenes):
-    """The batched 25-part decode on the card (K1, K3, greedy, K5) gives
-    the CPU's humans."""
+    """The batched 25-part decode on the card (K1, K3, greedy, K5, each
+    launched once) gives the CPU's humans, of BODY_25's parts."""
     params = DecodeParams()
-    out = decode_batch(scenes, 4 * H8, 4 * W8, params, BODY25)
+    out, n = counted(lambda: decode_batch(scenes, 4 * H8, 4 * W8, params,
+                                          BODY25))
+    assert n == {"smooth_nms_topk_raw": 1, "smooth_nms": 0,
+                 "score_candidates_raw": 1, "smooth_nms_topk": 0,
+                 "assemble_dense": 1, "bias_prelu": 0}
     ref = decode_batch(scenes.cpu(), 4 * H8, 4 * W8, params, BODY25)
     for i in range(16):
         got = PoseArrays.of(Assembled(*(t[i].cpu().numpy() for t in out)),
@@ -197,6 +194,8 @@ def test_decode_on_the_card_equals_the_cpu(scenes):
         want = PoseArrays.of(Assembled(*(t[i].numpy() for t in ref)),
                              BODY25).to_humans()
         assert got, f"image {i}: no humans"
+        assert all(h.skeleton is BODY25 and len(h.body_parts) <= 25
+                   for h in got)
         same_humans(got, want, f"BODY_25 image {i}")
 
 

@@ -3,8 +3,8 @@ package: the wire codec (``compat/wire.py``), ``Datum`` bytes equal to
 protobuf's (``tfpose_tpu/compat/datum_pb2.py``), ``TPDS`` shards equal
 to the JAX writer's, ``DatumPoseDataset`` batches equal to JAX's bit for
 bit, the trainer's ``--datum-shard``, and the committed fixture
-``tests/fixtures/datum_jax.tpds`` that ``chip_smoke.py`` reads on the
-card."""
+``tests/fixtures/datum_jax.tpds`` that ``tests/test_torch_cuda.py``
+reads on the card."""
 
 import math
 import os
@@ -356,7 +356,7 @@ def test_train_cli_datum_shard(tmp_path, rng):
 
 
 # ---------------------------------------------------------------------------
-# the committed fixture (read again on the card by chip_smoke.py)
+# the committed fixture (read again on the card by test_torch_cuda.py)
 # ---------------------------------------------------------------------------
 
 def test_datum_fixture(tmp_path):

@@ -1,14 +1,16 @@
-"""Import hygiene of the port: ``tfpose_tpu_torch`` and ``chip_smoke.py``
-(also in the ranks that it spawns) load no jax, flax, optax, orbax,
-msgpack, cv2, tensorboard, tensorflow, protobuf (``google``), lmdb or
-``tfpose_tpu`` module, and the chip run refuses to start without a card
-or outside a checkout."""
+"""Import hygiene of the port: ``tfpose_tpu_torch``, the card tests,
+``tests/torch_cases.py`` (also in the ranks that the card tests spawn)
+and ``chip_smoke.py`` load no jax, flax, optax, orbax, msgpack, cv2,
+tensorboard, tensorflow, protobuf (``google``), lmdb or ``tfpose_tpu``
+module; and the card tests skip only on a machine without a card."""
 
 import ast
+import glob
 import os
-import shutil
 import subprocess
 import sys
+
+import pytest
 
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
@@ -163,23 +165,59 @@ def test_port_imports_tensorboard_only_inside_make_writer():
         TENSORBOARD_FUNCTIONS
 
 
-def test_chip_smoke_imports_are_clean():
-    # every import statement in the script, at any depth
-    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+# the card tests, their shared cases and the kernels' yardstick, run on
+# a machine without jax
+CARD_FILES = {os.path.basename(p): p for p in [
+    os.path.join(ROOT, "tests", "torch_cases.py"),
+    os.path.join(ROOT, "chip_smoke.py")] + sorted(glob.glob(os.path.join(
+        ROOT, "tests", "test_torch_cuda*.py")))}
+
+
+@pytest.mark.parametrize("name", CARD_FILES)
+def test_card_tests_import_nothing_forbidden(name):
+    """No import statement of the file, at any depth, names a forbidden
+    root, and importing it loads no forbidden module."""
+    path = CARD_FILES[name]
     names = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse(open(path).read())):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
-            names.add(node.module)
+            names.add(node.module or "")
     assert not {n for n in names if n.split(".")[0] in FORBIDDEN}
-    assert {n.split(".")[0] for n in names} <= {
-        "__future__", "contextlib", "json", "os", "subprocess", "sys",
-        "time", "numpy", "torch", "tfpose_tpu_torch"}
+    out = _run(f"sys.path.insert(0, {os.path.dirname(path)!r})\n"
+               f"import {name[:-3]}\n")
+    assert out.returncode == 0, out.stderr
+    assert "CLEAN" in out.stdout
+
+
+def _card_rank_modules():
+    """In a rank spawned by ``launch``: import ``torch_cases`` (whose
+    ``rank_*`` bodies the card tests launch) and every port module that
+    it names; return the forbidden modules loaded (a namespace package
+    that site start-up put there has no file)."""
+    import importlib
+
+    import torch_cases
+
+    for node in ast.walk(ast.parse(open(torch_cases.__file__).read())):
+        if isinstance(node, ast.ImportFrom) and (node.module or "").startswith(
+                "tfpose_tpu_torch"):
+            importlib.import_module(node.module)
+    return sorted(name for name, mod in list(sys.modules.items())
+                  if name.split(".")[0] in FORBIDDEN
+                  and getattr(mod, "__file__", None) is not None)
+
+
+def test_card_test_ranks_import_nothing_forbidden():
+    from tfpose_tpu_torch.parallel.mesh import launch
+
+    assert launch(_card_rank_modules, 2, ["cpu"] * 2, "gloo",
+                  timeout=120) == [[], []]
 
 
 def test_chip_smoke_fails_without_a_card():
-    """Run under the guard with CUDA hidden: exit non-zero, no result."""
+    """Run under the guard with CUDA hidden: exit 1, no result."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
     payload = ("import runpy\n"
                "try:\n"
@@ -192,39 +230,32 @@ def test_chip_smoke_fails_without_a_card():
     assert "CLEAN" in out.stdout
 
 
-def test_chip_smoke_fails_outside_a_checkout(tmp_path):
-    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), tmp_path)
-    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode != 0
-    assert '"ok"' not in out.stdout
+@pytest.mark.parametrize("node, reached, cards, wanted, outcome", [
+    (False, False, 0, 1, "skip"),   # a machine without a card
+    (True, False, 0, 1, "fail"),    # a card that torch cannot reach
+    (True, True, 1, 1, "card"),
+    (True, True, 1, 4, "skip"),     # the four-card file on one card
+    (True, True, 4, 4, "card"),
+])
+def test_card_fixtures_skip_only_without_a_card(tmp_path, monkeypatch, node,
+                                                reached, cards, wanted,
+                                                outcome):
+    """``torch_cases.card``, every card fixture's decision: a skip where
+    the machine has no NVIDIA device node, a failure where it has one
+    that torch does not reach, a skip below the cards a file needs."""
+    import torch
 
+    import torch_cases
 
-def _chip_smoke_rank_modules():
-    """In a rank spawned by ``launch``: import ``chip_smoke.py`` as a
-    spawned rank does (``__mp_main__``) and every port module that it
-    names; return the forbidden modules loaded (a namespace package that
-    site start-up put there has no file)."""
-    import importlib
-    import runpy
-
-    path = os.path.join(ROOT, "chip_smoke.py")
-    runpy.run_path(path, run_name="__mp_main__")
-    tree = ast.parse(open(path).read())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.ImportFrom) and node.module.startswith(
-                "tfpose_tpu_torch"):
-            importlib.import_module(node.module)
-    return sorted(name for name, mod in list(sys.modules.items())
-                  if name.split(".")[0] in FORBIDDEN
-                  and getattr(mod, "__file__", None) is not None)
-
-
-def test_chip_smoke_ranks_import_nothing_forbidden():
-    """Phase 11 spawns ranks; a spawned rank of ``launch`` that loads
-    ``chip_smoke.py`` and the port modules it names loads none of the
-    forbidden packages."""
-    from tfpose_tpu_torch.parallel.mesh import launch
-
-    assert launch(_chip_smoke_rank_modules, 2, ["cpu"] * 2, "gloo",
-                  timeout=120) == [[], []]
+    dev = tmp_path / "nvidiactl"
+    if node:
+        dev.touch()
+    monkeypatch.setattr(torch_cases, "NVIDIA_DEVICE", str(dev))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: reached)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    if outcome == "card":
+        assert torch_cases.card(wanted) == torch.device("cuda:0")
+    else:
+        with pytest.raises(pytest.skip.Exception if outcome == "skip"
+                           else pytest.fail.Exception):
+            torch_cases.card(wanted)

@@ -37,7 +37,7 @@ from tfpose_tpu_torch.ops.kernels.paf_score import (
     paf_sample_scores_plain,
     score_candidates_raw,
 )
-from chip_smoke import k1_phase_reference
+from torch_cases import k1_phase_reference
 from tfpose_tpu_torch.ops.kernels.smooth_nms import (
     LIST_CAP,
     SMOOTH_NMS_ARGTYPES,

@@ -1,7 +1,8 @@
 """The port's decode-parity sweep (``evaluation/parity_sweep.py``) and
 its oracles (``oracle/numpy_post.py``, ``oracle/cpp/``) against the JAX
 package's, on the CPU (the production decode runs the kernels' plain
-versions here; ``chip_smoke.py`` phase 12 runs the sweep on the card).
+versions here; ``tests/test_torch_cuda_paths.py`` runs the sweep on the
+card).
 
 * ``numpy_post``: every function bit for bit against JAX's copy;
 * the C++ oracle, built by ``g++`` into ``tfpose_tpu_torch/_build/``,

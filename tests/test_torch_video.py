@@ -1,7 +1,7 @@
 """The port's ``VideoPipeline`` on the CPU: frames come back in order and
 as the same objects; at depth 1, 2 and 3 its humans equal a serial loop
-of forward and decode bit for bit (``chip_smoke.video_serial``, the
-check the card run makes across CUDA streams); and they equal the JAX
+of forward and decode bit for bit (``torch_cases.video_serial``, the
+check the card tests make across CUDA streams); and they equal the JAX
 ``VideoPipeline``'s with the same ``thin160_coco`` weights (parts exact,
 coords 1e-6, scores 1e-5)."""
 
@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import humans_key, video_serial
+from torch_cases import humans_key, video_serial
 from tfpose_tpu.estimator import TfPoseEstimator as JaxEstimator
 from tfpose_tpu.pipeline.video import VideoPipeline as JaxVideoPipeline
 from tfpose_tpu_torch.estimator import TfPoseEstimator
